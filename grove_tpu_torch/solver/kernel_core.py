@@ -1,0 +1,239 @@
+"""Kernel tier of the scoring core, for Hopper.
+
+The counterpart of grove_tpu/solver/pallas_core.py. Two hand-written CUDA
+kernels (sources in grove_tpu_torch/csrc/, built by grove_tpu_torch/build.py
+for sm_90a and called through ctypes), each beside its plain PyTorch twin:
+
+- `kernel_value` (csrc/value_kernel.cu) replaces `_value_kernel` /
+  `pallas_value`: the [G, D] value tensor -- hierarchy mask, per-level
+  score, preference bonus, squashed best-fit slack and fairness offset in
+  one pass. fp32 only; its plain twin is `value_plain`, whose arithmetic
+  and operation order are those of `value_from_aggregates`, so the two
+  are bit-equal (and bit-equal to the JAX package).
+- `kernel_commit_scan` (csrc/commit_scan.cu) replaces `device_commit_scan`:
+  the greedy walk over each gang's packed top-k against a residual
+  aggregate-capacity mirror, shipping one committed (value, domain) pair
+  per gang. Its plain twin is `device_commit_scan_plain`.
+
+A wrapper takes its plain version only for tensors that lie on the CPU --
+the CPU tests, the counterpart of JAX's interpret mode. For a CUDA tensor
+it launches the kernel or raises: a failed build, a refused launch or an
+unsupported shape is an error, never a silent fallback. Each wrapper
+counts its launches in `<wrapper>.launches` (a plain int, incremented only
+where the kernel is launched).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..build import load
+
+_NEG = -1e9
+
+#: the commit kernel gives one lane of one warp to each candidate (the
+#: feasibility test) and to each resource (the chain decrement)
+_WARP = 32
+
+#: shared memory one block may use on Hopper (227 KB); the commit kernel
+#: keeps its [(D + 1), R] f32 residual there
+_SMEM_BYTES = 232448
+
+_VALUE_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_COMMIT_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def value_plain(
+    dom_free,         # f32 [D, R] aggregate free per domain
+    cnt_fit,          # f32 [G, D] #nodes per domain fitting the max pod
+    dom_level,        # i32 [D]
+    total_demand,     # f32 [G, R]
+    required_level,   # i32 [G]
+    preferred_level,  # i32 [G]
+    valid,            # bool [G]
+    cap_scale,        # f32 [R]
+    fairness=None,    # f32 [G] per-gang tenant fairness weight (or None)
+):
+    """value[G, D], plain PyTorch: pack narrowness dominates (it IS the
+    placement score), then a bonus for satisfying the preferred level,
+    minus normalized slack so tight domains win ties (best-fit at domain
+    granularity), plus the gang's fairness offset. Pairs that are
+    statically infeasible or hierarchy-violating get -1e9. The operations
+    and their order are those of grove_tpu's value_from_aggregates."""
+    # Hierarchy mask: gangs may only use domains at least as narrow as their
+    # required level; the root (-1) only when unconstrained.
+    allowed = dom_level[None, :] >= required_level[:, None]
+    # Per-level value gap is 2.5, strictly above the worst-case competing
+    # swing (pref bonus 1.0 + squashed slack 1.0): pack narrowness stays
+    # lexicographically dominant.
+    level_score = 2.5 * (dom_level.to(torch.float32) + 2.0)
+    pref_bonus = (dom_level[None, :] >= preferred_level[:, None]).to(torch.float32)
+    slack = None
+    for res in range(dom_free.shape[1]):
+        # the divisor stays a tensor on the inputs' device: CUDA PyTorch
+        # turns a division by a CPU scalar into a multiplication by its
+        # reciprocal, which rounds differently from the kernel's division
+        cur = (dom_free[:, res][None, :] - total_demand[:, res][:, None]) / cap_scale[res]
+        slack = cur if slack is None else torch.maximum(slack, cur)
+    slack = slack / (1.0 + torch.abs(slack))  # squash: ordering, not magnitude
+    value = level_score[None, :] + 1.0 * pref_bonus - 0.5 * slack
+    if fairness is not None:
+        value = value + fairness[:, None]
+    static_mask = (cnt_fit >= 1.0) & allowed & valid[:, None]
+    return torch.where(static_mask, value, _NEG)
+
+
+def device_commit_scan_plain(top_val, top_dom, dom_free, anc_ids, total_demand):
+    """Greedy commit over the packed top-k, plain PyTorch, one gang at a
+    time: gangs in priority order (= row order) each take the FIRST
+    candidate that is still residually feasible at aggregate granularity
+    (`+ 1e-6` epsilon, value > -5e8), committing demand up the ancestor
+    chain. Rows with no feasible candidate carry -1e9 and their first
+    candidate's domain. Returns ([G, 1] f32 value, [G, 1] i32 domain)."""
+    g, _k = top_val.shape
+    d, r = dom_free.shape
+    resid = torch.cat([dom_free, dom_free.new_zeros((1, r))], dim=0)
+    sink = torch.full((anc_ids.shape[1],), d, dtype=anc_ids.dtype,
+                      device=anc_ids.device)
+    out_val = torch.empty((g, 1), dtype=torch.float32, device=top_val.device)
+    out_dom = torch.empty((g, 1), dtype=torch.int32, device=top_val.device)
+    for i in range(g):
+        vals, doms, td = top_val[i], top_dom[i], total_demand[i]
+        fits = (resid[doms] + 1e-6 >= td[None, :]).all(dim=-1)
+        fits = fits & (vals > _NEG / 2)
+        # jnp.argmax on bool: the first True, or 0 when there is none
+        k = int(torch.argmax(fits.to(torch.int32)))
+        ok = bool(fits.any())
+        choice = doms[k]
+        chain = anc_ids[choice.long()] if ok else sink
+        resid.index_add_(0, chain, (-td)[None, :].expand(chain.shape[0], r))
+        out_val[i, 0] = vals[k] if ok else _NEG
+        out_dom[i, 0] = choice
+    return out_val, out_dom
+
+
+def _launches_kernel(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (take the plain version); any other device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(
+            f"kernels run on CUDA devices (plain versions on the CPU); "
+            f"got a tensor on {t.device}"
+        )
+    return True
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: expected device {device}, got {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _raise_on(rc: int, kernel: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
+
+
+def kernel_value(dom_free, cnt_fit, dom_level, total_demand, required_level,
+                 preferred_level, valid, cap_scale, fairness):
+    """value[G, D] via csrc/value_kernel.cu (the drop-in for
+    `value_plain`; fairness is required, as every engine path passes it).
+    Plain version for CPU tensors; for CUDA tensors, the kernel."""
+    if not _launches_kernel(cnt_fit):
+        return value_plain(dom_free, cnt_fit, dom_level, total_demand,
+                           required_level, preferred_level, valid,
+                           cap_scale, fairness)
+    g, d = cnt_fit.shape
+    r = dom_free.shape[1]
+    if r < 1:
+        raise ValueError("value kernel needs at least one resource")
+    dev = cnt_fit.device
+    f32, i32 = torch.float32, torch.int32
+    _check("dom_free", dom_free, f32, (d, r), dev)
+    _check("cnt_fit", cnt_fit, f32, (g, d), dev)
+    _check("dom_level", dom_level, i32, (d,), dev)
+    _check("total_demand", total_demand, f32, (g, r), dev)
+    _check("required_level", required_level, i32, (g,), dev)
+    _check("preferred_level", preferred_level, i32, (g,), dev)
+    _check("valid", valid, torch.bool, (g,), dev)
+    _check("cap_scale", cap_scale, f32, (r,), dev)
+    _check("fairness", fairness, f32, (g,), dev)
+    out = torch.empty((g, d), dtype=f32, device=dev)
+    fn = load("value_kernel").grove_value
+    fn.argtypes, fn.restype = _VALUE_ARGTYPES, ctypes.c_int
+    rc = fn(_ptr(dom_free), _ptr(cnt_fit), _ptr(dom_level), _ptr(total_demand),
+            _ptr(required_level), _ptr(preferred_level), _ptr(valid),
+            _ptr(cap_scale), _ptr(fairness), _ptr(out), g, d, r, _stream(dev))
+    _raise_on(rc, "value kernel")
+    kernel_value.launches += 1
+    return out
+
+
+kernel_value.launches = 0
+
+
+def kernel_commit_scan(top_val, top_dom, dom_free, anc_ids, total_demand):
+    """([G, 1] committed value, [G, 1] committed domain) via
+    csrc/commit_scan.cu (the drop-in for `device_commit_scan_plain`).
+    Plain version for CPU tensors; for CUDA tensors, the kernel."""
+    if not _launches_kernel(top_val):
+        return device_commit_scan_plain(top_val, top_dom, dom_free, anc_ids,
+                                        total_demand)
+    g, k = top_val.shape
+    d, r = dom_free.shape
+    l1 = anc_ids.shape[1]
+    if not (1 <= k <= _WARP and 1 <= r <= _WARP):
+        raise ValueError(
+            f"commit kernel takes 1..{_WARP} candidates and resources, "
+            f"got {k} and {r}"
+        )
+    if (d + 1) * r * 4 > _SMEM_BYTES:
+        raise ValueError(
+            f"commit kernel keeps the [{d + 1}, {r}] residual in shared "
+            f"memory, which holds {_SMEM_BYTES} bytes"
+        )
+    dev = top_val.device
+    f32, i32 = torch.float32, torch.int32
+    _check("top_val", top_val, f32, (g, k), dev)
+    _check("top_dom", top_dom, i32, (g, k), dev)
+    _check("dom_free", dom_free, f32, (d, r), dev)
+    _check("anc_ids", anc_ids, i32, (d, l1), dev)
+    _check("total_demand", total_demand, f32, (g, r), dev)
+    out_val = torch.empty((g, 1), dtype=f32, device=dev)
+    out_dom = torch.empty((g, 1), dtype=i32, device=dev)
+    fn = load("commit_scan").grove_commit_scan
+    fn.argtypes, fn.restype = _COMMIT_ARGTYPES, ctypes.c_int
+    rc = fn(_ptr(top_val), _ptr(top_dom), _ptr(dom_free), _ptr(anc_ids),
+            _ptr(total_demand), _ptr(out_val), _ptr(out_dom),
+            g, k, d, r, l1, _stream(dev))
+    _raise_on(rc, "commit-scan kernel")
+    kernel_commit_scan.launches += 1
+    return out_val, out_dom
+
+
+kernel_commit_scan.launches = 0
+
+
+__all__ = [
+    "device_commit_scan_plain",
+    "kernel_commit_scan",
+    "kernel_value",
+    "value_plain",
+]

@@ -1,0 +1,87 @@
+"""Solver-side problem encoding: the dense gang struct.
+
+The counterpart of grove_tpu/solver/problem.py, trimmed to `SolverGang`.
+Encoding PodGang objects into SolverGangs (`encode_podgangs`) arrives with
+the control plane.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+
+
+@dataclass
+class SolverGang:
+    """One gang, dense. P pods, R resources (R matches the snapshot)."""
+
+    name: str
+    namespace: str
+    demand: np.ndarray                 # float32 [P, R]
+    pod_names: list[str]               # len P (pod metadata names)
+    group_ids: np.ndarray              # int32 [P] -- index into groups
+    group_names: list[str]
+    # Per-group pack levels, resolved to snapshot level indices; -1 = none.
+    group_required_level: np.ndarray   # int32 [num_groups]
+    group_preferred_level: np.ndarray  # int32 [num_groups]
+    # Gang-level pack constraint (PodGangSpec.TopologyConstraint).
+    required_level: int = -1
+    preferred_level: int = -1
+    priority: float = 0.0
+    # Tenant fairness weight: orders gangs of EQUAL priority in the commit
+    # order (gang_sort_key) and rides the value tensor as a per-row offset.
+    fairness: float = 0.0
+    # Constraint groups spanning subsets of groups (PCSG co-location inside a
+    # base gang, podgang.go:121-132): (member group indices, required_level,
+    # preferred_level).
+    constraint_groups: list[tuple[list[int], int, int]] = field(default_factory=list)
+    # Set when the gang cannot legally be solved at all; the solve reports
+    # it unplaced with this reason instead of scheduling it unconstrained.
+    unschedulable_reason: Optional[str] = None
+    # Per-pod node-eligibility masks (node_selector + taint tolerations):
+    # None = every pod unconstrained; else len-P list whose entries are
+    # shared read-only bool [N] arrays (or None for an individually
+    # unconstrained pod). Hard filter -- enforced exactly by fit.py and
+    # priced into the device score.
+    pod_elig: Optional[list] = None
+
+    @property
+    def num_pods(self) -> int:
+        return int(self.demand.shape[0])
+
+    def total_demand(self) -> np.ndarray:
+        # cached: demand is frozen after construction
+        td = getattr(self, "_total_demand", None)
+        if td is None:
+            td = self.demand.sum(axis=0)
+            object.__setattr__(self, "_total_demand", td)
+        return td
+
+    def max_pod_demand(self) -> np.ndarray:
+        return self.demand.max(axis=0) if self.num_pods else self.demand.sum(axis=0)
+
+    def elig_signatures(self) -> list:
+        """(max-pod demand, eligibility mask) pairs, one per distinct mask
+        class in the gang -- the node-granularity fit proxy the
+        unsat-diagnosis funnel shares with the device score. Cached."""
+        sigs = getattr(self, "_elig_sigs", None)
+        if sigs is not None:
+            return sigs
+        if self.pod_elig is None:
+            sigs = [(self.max_pod_demand(), None)]
+        else:
+            by_mask: dict[int, tuple] = {}
+            for p in range(self.num_pods):
+                mask = self.pod_elig[p]
+                key = 0 if mask is None else id(mask)
+                cur = by_mask.get(key)
+                dem = self.demand[p]
+                by_mask[key] = (
+                    dem if cur is None else np.maximum(cur[0], dem),
+                    mask,
+                )
+            sigs = list(by_mask.values())
+        object.__setattr__(self, "_elig_sigs", sigs)
+        return sigs

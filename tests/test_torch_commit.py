@@ -1,0 +1,177 @@
+"""grove_tpu_torch commit scans vs the JAX package's, on the CPU.
+
+The port's chunked `commit_scan` (murmur jitter, stable top-k, ancestor
+scatter) and the plain version of the device-commit kernel
+(`device_commit_scan_plain`) must be BIT-equal to JAX's `commit_scan` and
+`device_commit_scan` -- packed top-k values and domain ids, committed
+values and domains -- over seeds, ragged gang counts (which shrink the
+chunk) and top_k in {1, 4, 8}. Demands and free capacity are random
+non-dyadic floats, so the residual scatter-adds must also accumulate in
+the same order. Tolerance: none (assert_array_equal). The CUDA kernel is
+held against `device_commit_scan_plain` on the card by chip_smoke.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import bench
+from grove_tpu.solver.engine import DomainSpace as JaxDomainSpace
+from grove_tpu.solver.engine import commit_scan as _jax_commit_scan
+from grove_tpu.solver.engine import membership_matrix as jax_membership
+from grove_tpu.solver.engine import value_from_aggregates as jax_value
+from grove_tpu.solver.pallas_core import device_commit_scan as jax_device_commit
+
+from grove_tpu_torch import stress
+from grove_tpu_torch.solver.engine import (
+    DomainSpace,
+    commit_scan,
+    membership_matrix,
+    tie_jitter,
+)
+from grove_tpu_torch.solver.kernel_core import (
+    device_commit_scan_plain,
+    kernel_commit_scan,
+)
+
+
+_jitted_commit_scan = jax.jit(_jax_commit_scan, static_argnames=("top_k", "chunk"))
+
+
+def jax_commit_scan(value, dom_free, anc_ids, td, top_k):
+    return _jitted_commit_scan(value, dom_free, anc_ids, td, top_k=top_k)
+
+
+@pytest.fixture(scope="module")
+def spaces():
+    """The JAX and port domain spaces of one 3-tier cluster (64 nodes:
+    1 root + 1 block + 4 racks + 64 hosts)."""
+    return JaxDomainSpace(bench.make_cluster(64)), DomainSpace(stress.make_cluster(64))
+
+
+def _scan_inputs(space, seed, g, r=3):
+    """A seeded scoring instance on a real ancestor table: random
+    non-dyadic free/demand, a value tensor with masked cells and ties."""
+    rng = np.random.default_rng(seed)
+    d = space.num_domains
+    dom_free = rng.uniform(0.0, 64.0, (d, r)).astype(np.float32)
+    td = rng.uniform(0.0, 24.0, (g, r)).astype(np.float32)
+    cnt_fit = rng.integers(0, 3, (g, d)).astype(np.float32)
+    req = rng.integers(-1, 3, g).astype(np.int32)
+    pref = rng.integers(-1, 3, g).astype(np.int32)
+    valid = rng.random(g) > 0.1
+    cap = np.full(r, 32.0, np.float32)
+    fair = np.zeros(g, np.float32)  # equal rows tie exactly
+    value = np.array(jax_value(dom_free, cnt_fit, space.dom_level, td, req,
+                                 pref, valid, cap, fair))
+    return value, dom_free, td
+
+
+def test_domain_space_and_membership_match(spaces):
+    jsp, tsp = spaces
+    assert tsp.num_domains == jsp.num_domains
+    assert tsp.offsets == jsp.offsets
+    np.testing.assert_array_equal(tsp.gdom, jsp.gdom)
+    np.testing.assert_array_equal(tsp.dom_level, jsp.dom_level)
+    np.testing.assert_array_equal(tsp.anc_ids, jsp.anc_ids)
+    # a padded node carrying the out-of-range id contributes nothing
+    gdom = np.concatenate(
+        [jsp.gdom, np.full((jsp.gdom.shape[0], 1), jsp.num_domains, np.int32)],
+        axis=1,
+    )
+    np.testing.assert_array_equal(
+        membership_matrix(torch.from_numpy(gdom), jsp.num_domains).numpy(),
+        np.asarray(jax_membership(jnp.asarray(gdom), jsp.num_domains)),
+    )
+
+
+@pytest.mark.parametrize("g", [8, 40, 64])
+@pytest.mark.parametrize("top_k", [1, 4, 8])
+def test_commit_scan_bit_equal(spaces, g, top_k):
+    jsp, _ = spaces
+    for seed in (0, 1, 2):
+        value, dom_free, td = _scan_inputs(jsp, seed, g)
+        ref_val, ref_dom = jax_commit_scan(value, dom_free, jsp.anc_ids, td, top_k)
+        out_val, out_dom = commit_scan(
+            torch.from_numpy(value), torch.from_numpy(dom_free),
+            torch.from_numpy(jsp.anc_ids), torch.from_numpy(td), top_k,
+        )
+        np.testing.assert_array_equal(out_val.numpy(), np.asarray(ref_val))
+        np.testing.assert_array_equal(out_dom.numpy(), np.asarray(ref_dom))
+
+
+@pytest.mark.parametrize("top_k", [1, 4, 8])
+def test_device_commit_plain_bit_equal(spaces, top_k):
+    jsp, _ = spaces
+    for seed in (0, 1, 2):
+        value, dom_free, td = _scan_inputs(jsp, seed, 64)
+        top_val, top_dom = (
+            np.array(a)
+            for a in jax_commit_scan(value, dom_free, jsp.anc_ids, td, top_k)
+        )
+        ref_val, ref_dom = jax_device_commit(top_val, top_dom, dom_free,
+                                             jsp.anc_ids, td)
+        args = [torch.from_numpy(a)
+                for a in (top_val, top_dom, dom_free, jsp.anc_ids, td)]
+        out_val, out_dom = device_commit_scan_plain(*args)
+        np.testing.assert_array_equal(out_val.numpy(), np.asarray(ref_val))
+        np.testing.assert_array_equal(out_dom.numpy(), np.asarray(ref_dom))
+        # the wrapper on CPU tensors is the plain version, with no launch
+        before = kernel_commit_scan.launches
+        w_val, w_dom = kernel_commit_scan(*args)
+        assert kernel_commit_scan.launches == before
+        np.testing.assert_array_equal(w_val.numpy(), out_val.numpy())
+        np.testing.assert_array_equal(w_dom.numpy(), out_dom.numpy())
+
+
+def test_device_commit_without_feasible_candidate():
+    """No feasible candidate: value -1e9, domain = the first candidate,
+    and nothing committed (the next gang still sees the full residual)."""
+    top_val = np.array([[5.0, 4.0], [-1e9, -1e9], [5.0, 4.0]], np.float32)
+    top_dom = np.array([[1, 2], [2, 1], [1, 2]], np.int32)
+    dom_free = np.array([[0.0], [1.0], [10.0]], np.float32)
+    anc = np.array([[0, 3], [0, 1], [0, 2]], np.int32)
+    td = np.array([[2.0], [1.0], [2.0]], np.float32)
+    ref = jax_device_commit(top_val, top_dom, dom_free, anc, td)
+    out = device_commit_scan_plain(
+        *(torch.from_numpy(a) for a in (top_val, top_dom, dom_free, anc, td))
+    )
+    for o, rf in zip(out, ref):
+        np.testing.assert_array_equal(o.numpy(), np.asarray(rf))
+    assert out[0][1, 0] == -1e9 and out[1][1, 0] == 2
+
+
+def test_tie_jitter_bit_equal():
+    """The murmur mixing is uint32 in JAX and masked int64 in the port:
+    hash, float32 conversion and the 2**-32 scale must agree bitwise."""
+    g, d = 1024, 1500
+    gi = jnp.arange(g, dtype=jnp.uint32)[:, None]
+    di = jnp.arange(d, dtype=jnp.uint32)[None, :]
+    h = gi * jnp.uint32(0x9E3779B1) + di * jnp.uint32(0x85EBCA77)
+    h = h ^ (h >> 13)
+    h = h * jnp.uint32(0xC2B2AE35)
+    h = h ^ (h >> 16)
+    ref = jax.jit(lambda x: 1e-4 * (x.astype(jnp.float32) / jnp.float32(2**32)))(h)
+    np.testing.assert_array_equal(
+        tie_jitter(g, d, torch.device("cpu")).numpy(), np.asarray(ref)
+    )
+
+
+def test_top_k_ties_take_lower_index_first():
+    """A row masked everywhere but one column: lax.top_k returns that
+    column then the lowest-index masked ones; so must the port."""
+    d, top_k = 40, 4
+    value = np.full((1, d), -1e9, np.float32)
+    value[0, 17] = 3.0
+    dom_free = np.full((d, 1), 100.0, np.float32)
+    anc = np.stack([np.arange(d), np.full(d, d)], axis=1).astype(np.int32)
+    td = np.ones((1, 1), np.float32)
+    ref_val, ref_dom = jax_commit_scan(value, dom_free, anc, td, top_k)
+    out_val, out_dom = commit_scan(
+        *(torch.from_numpy(a) for a in (value, dom_free, anc, td)), top_k
+    )
+    np.testing.assert_array_equal(out_dom.numpy(), np.asarray(ref_dom))
+    np.testing.assert_array_equal(out_val.numpy(), np.asarray(ref_val))
+    assert out_dom.numpy()[0].tolist() == [17, 0, 1, 2]
