@@ -25,6 +25,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent
 SOURCES = {
     "value_kernel": "csrc/value_kernel.cu",
     "commit_scan": "csrc/commit_scan.cu",
+    "commit_topk": "csrc/commit_topk.cu",
 }
 
 #: Hopper only (sm_90a); IEEE division is nvcc's default without

@@ -4,8 +4,8 @@
                      exactness net (pure-Python loops with exact checks).
   engine.py       -- the batched path: every pending gang scored against
                      every topology domain at once on the device, then
-                     committed exactly on host by the shared fit.py
-                     primitives.
+                     committed exactly on host, in C++ by default
+                     (grove_tpu_torch/native) or by the fit.py primitives.
   kernel_core.py  -- the hand-written CUDA kernels of the device phase
                      and their plain PyTorch twins.
 """
@@ -13,10 +13,15 @@
 from .engine import PlacementEngine
 from .fit import place_gang_in_domain, placement_score_for_nodes
 from .kernel_core import (
+    commit_topk_plain,
     device_commit_scan_plain,
     kernel_commit_scan,
+    kernel_commit_topk,
     kernel_value,
+    launch_counts,
+    reset_launches,
     value_plain,
+    value_plain_bf16,
 )
 from .problem import SolverGang
 from .result import GangPlacement, SolveResult
@@ -27,11 +32,16 @@ __all__ = [
     "PlacementEngine",
     "SolveResult",
     "SolverGang",
+    "commit_topk_plain",
     "device_commit_scan_plain",
     "kernel_commit_scan",
+    "kernel_commit_topk",
     "kernel_value",
+    "launch_counts",
     "place_gang_in_domain",
     "placement_score_for_nodes",
+    "reset_launches",
     "solve_serial",
     "value_plain",
+    "value_plain_bf16",
 ]

@@ -11,17 +11,21 @@ domains one at a time with exact checks, this engine evaluates EVERY
   2. Device phase (torch): the one-hot membership matrix M (built once
      per engine), the domain aggregates dom_free = M^T free and the
      per-signature fit counts cnt_fit = node_fits M (plain fp32
-     products), the value tensor (csrc/value_kernel.cu), the chunked
-     greedy commit scan with top-k alternates (`commit_scan`, a loop of
-     torch ops), and the on-device greedy commit (csrc/commit_scan.cu).
+     products), the value tensor (csrc/value_kernel.cu, fp32 or bf16),
+     the chunked greedy commit scan with top-k alternates
+     (csrc/commit_topk.cu), and the on-device greedy commit
+     (csrc/commit_scan.cu).
   3. One packed device-to-host copy.
   4. Exact host repair: commit gangs in the same order against live
-     node-level free capacity (fit.py), falling back to the full serial
-     scan for any gang whose candidates all fail (counted in stats), so
+     node-level free capacity -- in C++ (native/serial_scorer.cpp) by
+     default, or with the fit.py primitives (`native_repair=False`, the
+     semantic reference) -- falling back to the full serial scan for any
+     gang whose candidates all fail (counted in stats), so
      hard-feasibility semantics stay identical to the serial path.
 
-Knobs keep the JAX package's names (`pallas_core`, `device_commit`,
-`pallas_precision`); see `resolve_kernel_tiers` for what they mean here.
+Knobs keep the JAX package's names (`native_repair`, `pallas_core`,
+`device_commit`, `pallas_precision`); see `resolve_kernel_tiers` for what
+the kernel knobs mean here.
 The device-resident free state, the incremental re-solve, async dispatch
 and the hierarchical solve are not part of this engine yet (ROADMAP.md).
 """
@@ -35,10 +39,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..native.serial_native import repair_native
 from ..observability.explain import diagnose_unplaced
 from ..topology.encoding import TopologySnapshot
 from .fit import place_gang_in_domain, placement_score_for_nodes
-from .kernel_core import kernel_commit_scan, kernel_value, value_plain
+from .kernel_core import (
+    kernel_commit_scan,
+    kernel_commit_topk,
+    kernel_value,
+    value_plain,
+)
 from .problem import SolverGang
 from .result import GangPlacement, SolveResult
 from .serial import _place_one, gang_sort_key, stamp_fairness
@@ -149,48 +159,25 @@ def tie_jitter(g: int, d: int, device) -> torch.Tensor:
 def commit_scan(value, dom_free, anc_ids, total_demand, top_k: int,
                 chunk: int = 32):
     """Contention pass: virtual commit in priority order (= row order),
-    CHUNKED. resid carries residual aggregate capacity per domain (+1
-    absorbing dummy row for ancestor-chain padding).
-
-    Gangs are processed `chunk` at a time: every gang in a chunk picks its
-    best residually-feasible domain against the same residual state, then
-    all chunk choices are committed (demand scattered up the ancestor
-    chains) before the next chunk. The deterministic jitter spreads
-    exactly-tied gangs across equally-good domains. Within-chunk
+    CHUNKED. Gangs are processed `chunk` at a time: every gang in a chunk
+    picks its best residually-feasible domain against the same residual
+    state, then all chunk choices are committed (demand scattered up the
+    ancestor chains) before the next chunk. The deterministic jitter
+    spreads exactly-tied gangs across equally-good domains. Within-chunk
     collisions can transiently overcommit a domain; the exact host repair
     resolves them. Returns (top_val [G, K] f32, top_dom [G, K] i32).
 
-    A loop of G/chunk steps of plain torch ops; a hand kernel for it is
-    queued in ROADMAP.md."""
+    The jitter is a few elementwise torch ops; the scan itself is
+    `kernel_commit_topk` (csrc/commit_topk.cu on the card, the plain loop
+    `commit_topk_plain` on the CPU)."""
     g_total, d = value.shape
     chunk = max(1, min(chunk, g_total))
     while g_total % chunk:
         chunk -= 1  # g_total is a power-of-two bucket; chunk normally stays 32
-    r = dom_free.shape[1]
-    resid = torch.cat([dom_free, dom_free.new_zeros((1, r))], dim=0)
-    jitter = tie_jitter(g_total, d, value.device)
-    jittered = torch.where(value > _NEG / 2, value + jitter, value)
-    l1 = anc_ids.shape[1]
-    top_val = torch.empty((g_total, top_k), dtype=torch.float32, device=value.device)
-    top_dom = torch.empty((g_total, top_k), dtype=torch.int32, device=value.device)
-    for start in range(0, g_total, chunk):
-        gs = slice(start, start + chunk)
-        td = total_demand[gs]                                   # [C, R]
-        fits = ((resid[:d] + 1e-6)[None, :, :] >= td[:, None, :]).all(dim=-1)
-        rows = torch.where(fits, jittered[gs], _NEG)            # [C, D]
-        # lax.top_k puts the lower index first among equal values, and
-        # masked -1e9 entries tie by the thousand; torch.topk promises no
-        # order among ties, a stable descending sort gives lax's
-        vals, idx = torch.sort(rows, dim=1, descending=True, stable=True)
-        best_val, best_dom = vals[:, :top_k], idx[:, :top_k]
-        choice = best_dom[:, 0]
-        ok = best_val[:, 0] > _NEG / 2
-        chains = torch.where(ok[:, None], anc_ids[choice], d)   # [C, L+1]
-        resid.index_add_(0, chains.reshape(-1),
-                         (-td).repeat_interleave(l1, dim=0))
-        top_val[gs] = best_val
-        top_dom[gs] = best_dom.to(torch.int32)
-    return top_val, top_dom
+    jittered = torch.where(value > _NEG / 2,
+                           value + tie_jitter(g_total, d, value.device), value)
+    return kernel_commit_topk(jittered, dom_free, anc_ids, total_demand,
+                              top_k, chunk)
 
 
 def resolve_device(device) -> torch.device:
@@ -216,13 +203,10 @@ def resolve_kernel_tiers(device_type: str, pallas_core, device_commit,
     and the device commit defaults on (False keeps the host candidate
     walk). On the CPU both default off, as in JAX; True selects the
     kernels' plain versions, the counterpart of JAX's interpret mode.
-    fp32 is the only precision so far."""
-    if pallas_precision == "bf16":
-        raise NotImplementedError(
-            "pallas_precision='bf16' is not ported yet (ROADMAP.md, port "
-            "queue: the bf16 precision of the value kernel)"
-        )
-    if pallas_precision != "fp32":
+    `pallas_precision` ("fp32" or "bf16") is the value kernel's: it
+    applies wherever the kernel tier does (always on CUDA; on the CPU
+    only with pallas_core=True) and is ignored otherwise, as in JAX."""
+    if pallas_precision not in ("fp32", "bf16"):
         raise ValueError(
             f"pallas_precision must be 'fp32' or 'bf16', got {pallas_precision!r}"
         )
@@ -264,12 +248,17 @@ class PlacementEngine:
         pallas_core: bool | None = None,
         device_commit: bool | None = None,
         pallas_precision: str = "fp32",
+        native_repair: bool = True,
     ):
         self.device = resolve_device(device)
         self.pallas_core, self.device_commit = resolve_kernel_tiers(
             self.device.type, pallas_core, device_commit, pallas_precision
         )
         self.pallas_precision = pallas_precision
+        #: exact repair in C++ (native/serial_scorer.cpp, built with g++ at
+        #: the first solve; a failed build raises) or, when False, with
+        #: the fit.py primitives
+        self.native_repair = native_repair
         if self.device.type == "cuda":
             # dom_free = M^T free and cnt_fit = node_fits M must stay exact
             # integer sums; TF32 would round their operands to 10 mantissa
@@ -401,12 +390,11 @@ class PlacementEngine:
         elig_masks[: len(mask_rows)] = np.stack(mask_rows)
         return u_sig_demand, u_sig_mask, elig_masks, sig_idx
 
-    def _score_core(self, enc: EncodedBacklog, free: np.ndarray):
-        """Device scoring body: value tensor + chunked commit scan from the
-        masked free state. Returns (top_val [G, K] f32, top_dom [G, K]
-        i32, dom_free [D, R] f32, total_demand [G, R] f32), all on the
-        engine's device."""
-        dom_level, anc_ids, cap_scale, m = self._ensure_statics()
+    def _score_values(self, enc: EncodedBacklog, free: np.ndarray):
+        """The value tensor from the masked free state. Returns (value
+        [G, D] f32, dom_free [D, R] f32, total_demand [G, R] f32), all on
+        the engine's device."""
+        dom_level, _anc_ids, cap_scale, m = self._ensure_statics()
         u_sig_demand, u_sig_mask, elig_masks, sig_idx = enc.sig
         free_d = self._to_device(self._masked_free(free))
         total_demand = self._to_device(enc.total_demand)
@@ -421,16 +409,26 @@ class PlacementEngine:
             .to(torch.float32) * masks
         )                                                       # [U, N]
         cnt_fit = (node_fits @ m)[self._to_device(sig_idx)].amin(dim=1)
-        score = kernel_value if self.pallas_core else value_from_aggregates
-        value = score(
+        args = (
             dom_free, cnt_fit, dom_level, total_demand,
             self._to_device(enc.required_level),
             self._to_device(enc.preferred_level),
             self._to_device(enc.valid), cap_scale,
             self._to_device(enc.fairness),
         )
+        if self.pallas_core:
+            value = kernel_value(*args, precision=self.pallas_precision)
+        else:
+            value = value_from_aggregates(*args)
+        return value, dom_free, total_demand
+
+    def _score_core(self, enc: EncodedBacklog, free: np.ndarray):
+        """Device scoring body: value tensor + chunked commit scan. Returns
+        (top_val [G, K] f32, top_dom [G, K] i32, dom_free [D, R] f32,
+        total_demand [G, R] f32), all on the engine's device."""
+        value, dom_free, total_demand = self._score_values(enc, free)
         top_val, top_dom = commit_scan(
-            value, dom_free, anc_ids, total_demand,
+            value, dom_free, self._statics[1], total_demand,
             min(self.top_k, self.space.num_domains), self.commit_chunk,
         )
         return top_val, top_dom, dom_free, total_demand
@@ -451,18 +449,32 @@ class PlacementEngine:
         k = packed.shape[1] // 2
         return packed[:, :k], packed[:, k:].astype(np.int32)
 
+    def _encode_backlog(self, gangs: list[SolverGang]) -> EncodedBacklog:
+        order = sorted(
+            (g for g in gangs if not g.unschedulable_reason),
+            key=gang_sort_key,
+        )
+        return self._encode_arrays(order)
+
+    def score_values(self, gangs: list[SolverGang],
+                     free: np.ndarray | None = None):
+        """The device phase up to the value tensor, left on the device:
+        (value, dom_free, anc_ids, total_demand), the inputs of the commit
+        scan for this backlog."""
+        free = self.snapshot.free if free is None else free
+        value, dom_free, total_demand = self._score_values(
+            self._encode_backlog(gangs), free
+        )
+        return value, dom_free, self._statics[1], total_demand
+
     def score_candidates(self, gangs: list[SolverGang],
                          free: np.ndarray | None = None):
         """The device phase up to the commit scan's packed top-k, left on
         the device: (top_val, top_dom, dom_free, anc_ids, total_demand),
         the inputs of the device commit for this backlog."""
-        order = sorted(
-            (g for g in gangs if not g.unschedulable_reason),
-            key=gang_sort_key,
-        )
         free = self.snapshot.free if free is None else free
         top_val, top_dom, dom_free, total_demand = self._score_core(
-            self._encode_arrays(order), free
+            self._encode_backlog(gangs), free
         )
         return top_val, top_dom, dom_free, self._statics[1], total_demand
 
@@ -518,8 +530,15 @@ class PlacementEngine:
         return result
 
     def _repair(self, order, top_val, top_dom, free):
-        """Exact commit phase with the fit.py primitives: each gang tries
-        its candidates in order, then the serial exactness net."""
+        """Exact commit phase: each gang tries its candidates in order,
+        then the serial exactness net. In C++ by default (repair_native,
+        which raises if its library cannot be built); with the fit.py
+        primitives, the semantic reference, when native_repair is off."""
+        if self.native_repair:
+            return repair_native(
+                self.snapshot, order, top_val, top_dom, self.space.dom_level,
+                np.asarray(self.space.offsets[:-1], np.int32), free,
+            )
         snapshot = self.snapshot
         placed_map = {}
         fallbacks = 0

@@ -1,15 +1,25 @@
 """Kernel tier of the scoring core, for Hopper.
 
-The counterpart of grove_tpu/solver/pallas_core.py. Two hand-written CUDA
-kernels (sources in grove_tpu_torch/csrc/, built by grove_tpu_torch/build.py
-for sm_90a and called through ctypes), each beside its plain PyTorch twin:
+The counterpart of grove_tpu/solver/pallas_core.py. Three hand-written
+CUDA kernels (sources in grove_tpu_torch/csrc/, built by
+grove_tpu_torch/build.py for sm_90a and called through ctypes), each
+beside its plain PyTorch twin:
 
 - `kernel_value` (csrc/value_kernel.cu) replaces `_value_kernel` /
   `pallas_value`: the [G, D] value tensor -- hierarchy mask, per-level
   score, preference bonus, squashed best-fit slack and fairness offset in
-  one pass. fp32 only; its plain twin is `value_plain`, whose arithmetic
-  and operation order are those of `value_from_aggregates`, so the two
-  are bit-equal (and bit-equal to the JAX package).
+  one pass, in either precision. fp32: its plain twin `value_plain`
+  keeps the arithmetic and operation order of `value_from_aggregates`, so
+  the two are bit-equal (and bit-equal to the JAX package). bf16: its
+  plain twin `value_plain_bf16` is a chain of bf16 torch ops, each
+  computed in fp32 and rounded to bf16; the kernel rounds at the same
+  places and is bit-equal to it. Against JAX's bf16 tier it is
+  score-equal, not bit-equal (XLA rounds at other places).
+- `kernel_commit_topk` (csrc/commit_topk.cu) replaces the chunked
+  `commit_scan` (grove_tpu/solver/engine.py, a `lax.scan` over
+  `lax.top_k`): per chunk of gangs, each gang's top-k residually feasible
+  domains, then the chunk's first choices committed down their ancestor
+  chains in row order. Its plain twin is `commit_topk_plain`.
 - `kernel_commit_scan` (csrc/commit_scan.cu) replaces `device_commit_scan`:
   the greedy walk over each gang's packed top-k against a residual
   aggregate-capacity mirror, shipping one committed (value, domain) pair
@@ -19,8 +29,10 @@ A wrapper takes its plain version only for tensors that lie on the CPU --
 the CPU tests, the counterpart of JAX's interpret mode. For a CUDA tensor
 it launches the kernel or raises: a failed build, a refused launch or an
 unsupported shape is an error, never a silent fallback. Each wrapper
-counts its launches in `<wrapper>.launches` (a plain int, incremented only
-where the kernel is launched).
+counts the launches of its kernel (a plain int, incremented only where
+the kernel is launched): `kernel_value.launches` per precision, the
+others in `<wrapper>.launches`; `launch_counts()` reads them all by
+kernel name and `reset_launches()` sets them to 0.
 """
 
 from __future__ import annotations
@@ -37,12 +49,20 @@ _NEG = -1e9
 #: feasibility test) and to each resource (the chain decrement)
 _WARP = 32
 
-#: shared memory one block may use on Hopper (227 KB); the commit kernel
-#: keeps its [(D + 1), R] f32 residual there
+#: shared memory one block may use on Hopper (227 KB); both commit
+#: kernels keep their residual there
 _SMEM_BYTES = 232448
+
+#: the commit top-k kernel selects one candidate per block-wide round; it
+#: takes at most this many (the engine asks for 8)
+_TOPK_MAX = 32
 
 _VALUE_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _COMMIT_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_TOPK_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+#: value-kernel precisions and their C entry points
+_VALUE_ENTRY = {"fp32": "grove_value", "bf16": "grove_value_bf16"}
 
 
 def value_plain(
@@ -83,6 +103,84 @@ def value_plain(
         value = value + fairness[:, None]
     static_mask = (cnt_fit >= 1.0) & allowed & valid[:, None]
     return torch.where(static_mask, value, _NEG)
+
+
+def value_plain_bf16(
+    dom_free, cnt_fit, dom_level, total_demand, required_level,
+    preferred_level, valid, cap_scale, fairness=None,
+):
+    """value[G, D], plain PyTorch, reduced precision: the operations and
+    order of `value_plain` with the score chain in bf16, cast where JAX's
+    bf16 kernel tier casts it (pallas_core.py `acc = jnp.bfloat16`):
+    dom_level, the constants, dom_free, total_demand, cap_scale and
+    fairness become bf16 first, and every op rounds its result to bf16
+    (PyTorch computes a bf16 elementwise op in fp32 and rounds to nearest
+    even). The mask stays fp32-exact and the output is f32."""
+    bf16 = torch.bfloat16
+    allowed = dom_level[None, :] >= required_level[:, None]
+    level_score = 2.5 * (dom_level.to(bf16) + 2.0)
+    pref_bonus = (dom_level[None, :] >= preferred_level[:, None]).to(bf16)
+    slack = None
+    for res in range(dom_free.shape[1]):
+        # the divisor stays a device tensor, as in value_plain
+        cur = (dom_free[:, res].to(bf16)[None, :]
+               - total_demand[:, res].to(bf16)[:, None]) / cap_scale[res].to(bf16)
+        slack = cur if slack is None else torch.maximum(slack, cur)
+    slack = slack / (1.0 + torch.abs(slack))
+    value = level_score[None, :] + 1.0 * pref_bonus - 0.5 * slack
+    if fairness is not None:
+        value = value + fairness.to(bf16)[:, None]
+    static_mask = (cnt_fit >= 1.0) & allowed & valid[:, None]
+    return torch.where(static_mask, value.to(torch.float32), _NEG)
+
+
+#: the plain twin of the value kernel, by precision
+VALUE_PLAIN = {"fp32": value_plain, "bf16": value_plain_bf16}
+
+
+def commit_topk_plain(jittered, dom_free, anc_ids, total_demand, top_k: int,
+                      chunk: int):
+    """The chunked commit scan, plain PyTorch: gangs `chunk` rows at a
+    time (the last chunk may be shorter) each keep their top_k domains
+    that are residually feasible against the chunk-start residual
+    (`+ 1e-6` epsilon; infeasible domains score -1e9), ordered by value
+    descending then index ascending as lax.top_k orders them; then every
+    row's first choice (if its value > -5e8) subtracts the row's demand
+    from the domain's ancestor chain, rows in order and chains in order
+    (JAX's flattened [C, L+1] scatter). `jittered` is the value tensor with
+    the commit scan's tie jitter already added. Returns (top_val [G, K]
+    f32, top_dom [G, K] i32).
+
+    On the CPU the scatter-add runs in that order. On CUDA, index_add_
+    adds with atomics in no fixed order, so the card's result may differ
+    in the last bit wherever demands are not dyadic: the card runs
+    `kernel_commit_topk` instead."""
+    g_total, d = jittered.shape
+    r = dom_free.shape[1]
+    resid = torch.cat([dom_free, dom_free.new_zeros((1, r))], dim=0)
+    l1 = anc_ids.shape[1]
+    top_val = torch.empty((g_total, top_k), dtype=torch.float32,
+                          device=jittered.device)
+    top_dom = torch.empty((g_total, top_k), dtype=torch.int32,
+                          device=jittered.device)
+    for start in range(0, g_total, chunk):
+        gs = slice(start, start + chunk)
+        td = total_demand[gs]                                   # [C, R]
+        fits = ((resid[:d] + 1e-6)[None, :, :] >= td[:, None, :]).all(dim=-1)
+        rows = torch.where(fits, jittered[gs], _NEG)            # [C, D]
+        # lax.top_k puts the lower index first among equal values, and
+        # masked -1e9 entries tie by the thousand; torch.topk promises no
+        # order among ties, a stable descending sort gives lax's
+        vals, idx = torch.sort(rows, dim=1, descending=True, stable=True)
+        best_val, best_dom = vals[:, :top_k], idx[:, :top_k]
+        choice = best_dom[:, 0]
+        ok = best_val[:, 0] > _NEG / 2
+        chains = torch.where(ok[:, None], anc_ids[choice], d)   # [C, L+1]
+        resid.index_add_(0, chains.reshape(-1),
+                         (-td).repeat_interleave(l1, dim=0))
+        top_val[gs] = best_val
+        top_dom[gs] = best_dom.to(torch.int32)
+    return top_val, top_dom
 
 
 def device_commit_scan_plain(top_val, top_dom, dom_free, anc_ids, total_demand):
@@ -152,14 +250,21 @@ def _raise_on(rc: int, kernel: str) -> None:
 
 
 def kernel_value(dom_free, cnt_fit, dom_level, total_demand, required_level,
-                 preferred_level, valid, cap_scale, fairness):
-    """value[G, D] via csrc/value_kernel.cu (the drop-in for
-    `value_plain`; fairness is required, as every engine path passes it).
-    Plain version for CPU tensors; for CUDA tensors, the kernel."""
+                 preferred_level, valid, cap_scale, fairness, *,
+                 precision: str = "fp32"):
+    """value[G, D] via csrc/value_kernel.cu in `precision` ("fp32" or
+    "bf16"): the drop-in for `value_plain` / `value_plain_bf16` (fairness
+    is required, as every engine path passes it). Plain version for CPU
+    tensors; for CUDA tensors, the kernel."""
+    if precision not in VALUE_PLAIN:
+        raise ValueError(
+            f"precision must be 'fp32' or 'bf16', got {precision!r}"
+        )
     if not _launches_kernel(cnt_fit):
-        return value_plain(dom_free, cnt_fit, dom_level, total_demand,
-                           required_level, preferred_level, valid,
-                           cap_scale, fairness)
+        return VALUE_PLAIN[precision](dom_free, cnt_fit, dom_level,
+                                      total_demand, required_level,
+                                      preferred_level, valid, cap_scale,
+                                      fairness)
     g, d = cnt_fit.shape
     r = dom_free.shape[1]
     if r < 1:
@@ -176,17 +281,67 @@ def kernel_value(dom_free, cnt_fit, dom_level, total_demand, required_level,
     _check("cap_scale", cap_scale, f32, (r,), dev)
     _check("fairness", fairness, f32, (g,), dev)
     out = torch.empty((g, d), dtype=f32, device=dev)
-    fn = load("value_kernel").grove_value
+    fn = getattr(load("value_kernel"), _VALUE_ENTRY[precision])
     fn.argtypes, fn.restype = _VALUE_ARGTYPES, ctypes.c_int
     rc = fn(_ptr(dom_free), _ptr(cnt_fit), _ptr(dom_level), _ptr(total_demand),
             _ptr(required_level), _ptr(preferred_level), _ptr(valid),
             _ptr(cap_scale), _ptr(fairness), _ptr(out), g, d, r, _stream(dev))
-    _raise_on(rc, "value kernel")
-    kernel_value.launches += 1
+    _raise_on(rc, f"value kernel ({precision})")
+    kernel_value.launches[precision] += 1
     return out
 
 
-kernel_value.launches = 0
+kernel_value.launches = dict.fromkeys(VALUE_PLAIN, 0)
+
+
+def kernel_commit_topk(jittered, dom_free, anc_ids, total_demand,
+                       top_k: int, chunk: int):
+    """(top_val [G, K] f32, top_dom [G, K] i32) via csrc/commit_topk.cu
+    (the drop-in for `commit_topk_plain`). Plain version for CPU tensors;
+    for CUDA tensors, the kernel: one cooperative launch whose blocks (one
+    per chunk row, all co-resident) select in parallel and commit each
+    chunk in row order, so the residual is the same on every run."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if not _launches_kernel(jittered):
+        return commit_topk_plain(jittered, dom_free, anc_ids, total_demand,
+                                 top_k, chunk)
+    g, d = jittered.shape
+    r = dom_free.shape[1]
+    l1 = anc_ids.shape[1]
+    if not (1 <= top_k <= min(_TOPK_MAX, d)):
+        raise ValueError(
+            f"commit top-k kernel keeps 1..min({_TOPK_MAX}, D={d}) candidates, "
+            f"got {top_k}"
+        )
+    if r < 1:
+        raise ValueError("commit top-k kernel needs at least one resource")
+    smem = (d * r + d + min(chunk, g) * l1) * 4
+    if smem > _SMEM_BYTES:
+        raise ValueError(
+            f"commit top-k kernel keeps a [{d}, {r}] residual, a [{d}] row "
+            f"and the chunk's chains in shared memory: {smem} bytes, above "
+            f"the {_SMEM_BYTES} a block holds"
+        )
+    dev = jittered.device
+    f32, i32 = torch.float32, torch.int32
+    _check("jittered", jittered, f32, (g, d), dev)
+    _check("dom_free", dom_free, f32, (d, r), dev)
+    _check("anc_ids", anc_ids, i32, (d, l1), dev)
+    _check("total_demand", total_demand, f32, (g, r), dev)
+    top_val = torch.empty((g, top_k), dtype=f32, device=dev)
+    top_dom = torch.empty((g, top_k), dtype=i32, device=dev)
+    fn = load("commit_topk").grove_commit_topk
+    fn.argtypes, fn.restype = _TOPK_ARGTYPES, ctypes.c_int
+    rc = fn(_ptr(jittered), _ptr(dom_free), _ptr(anc_ids), _ptr(total_demand),
+            _ptr(top_val), _ptr(top_dom), g, d, r, l1, top_k, chunk,
+            _stream(dev))
+    _raise_on(rc, "commit top-k kernel")
+    kernel_commit_topk.launches += 1
+    return top_val, top_dom
+
+
+kernel_commit_topk.launches = 0
 
 
 def kernel_commit_scan(top_val, top_dom, dom_free, anc_ids, total_demand):
@@ -231,9 +386,31 @@ def kernel_commit_scan(top_val, top_dom, dom_free, anc_ids, total_demand):
 kernel_commit_scan.launches = 0
 
 
+def launch_counts() -> dict[str, int]:
+    """Kernel launches since the last reset, by kernel name."""
+    return {
+        "value_kernel": kernel_value.launches["fp32"],
+        "value_kernel_bf16": kernel_value.launches["bf16"],
+        "commit_topk": kernel_commit_topk.launches,
+        "commit_scan": kernel_commit_scan.launches,
+    }
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    kernel_value.launches = dict.fromkeys(VALUE_PLAIN, 0)
+    kernel_commit_topk.launches = 0
+    kernel_commit_scan.launches = 0
+
+
 __all__ = [
+    "commit_topk_plain",
     "device_commit_scan_plain",
     "kernel_commit_scan",
+    "kernel_commit_topk",
     "kernel_value",
+    "launch_counts",
+    "reset_launches",
     "value_plain",
+    "value_plain_bf16",
 ]

@@ -1,8 +1,9 @@
 """Solver-side problem encoding: the dense gang struct.
 
-The counterpart of grove_tpu/solver/problem.py, trimmed to `SolverGang`.
-Encoding PodGang objects into SolverGangs (`encode_podgangs`) arrives with
-the control plane.
+The counterpart of grove_tpu/solver/problem.py, trimmed to `SolverGang`
+and the per-pod mask encoding the native repair ships
+(`dedupe_pod_masks`). Encoding PodGang objects into SolverGangs
+(`encode_podgangs`) arrives with the control plane.
 """
 
 from __future__ import annotations
@@ -85,3 +86,29 @@ class SolverGang:
             sigs = list(by_mask.values())
         object.__setattr__(self, "_elig_sigs", sigs)
         return sigs
+
+
+def dedupe_pod_masks(
+    gangs: list[SolverGang],
+) -> tuple[list[np.ndarray], np.ndarray]:
+    """Flatten per-pod eligibility masks across a gang list into unique
+    rows + a per-pod row index (-1 = unconstrained). Masks are shared
+    read-only arrays (snapshot.eligibility cache), so identity dedup keeps
+    the row count tiny."""
+    total = sum(g.num_pods for g in gangs)
+    idx = np.full(total, -1, np.int32)
+    rows: list[np.ndarray] = []
+    row_of: dict[int, int] = {}
+    p = 0
+    for g in gangs:
+        for j in range(g.num_pods):
+            mask = g.pod_elig[j] if g.pod_elig is not None else None
+            if mask is not None:
+                row = row_of.get(id(mask))
+                if row is None:
+                    row = len(rows)
+                    row_of[id(mask)] = row
+                    rows.append(mask)
+                idx[p] = row
+            p += 1
+    return rows, idx

@@ -1,14 +1,18 @@
 """grove_tpu_torch commit scans vs the JAX package's, on the CPU.
 
-The port's chunked `commit_scan` (murmur jitter, stable top-k, ancestor
-scatter) and the plain version of the device-commit kernel
+The port's chunked `commit_scan` (murmur jitter, then the commit top-k
+kernel's plain twin `commit_topk_plain`: stable top-k, ancestor scatter)
+and the plain version of the device-commit kernel
 (`device_commit_scan_plain`) must be BIT-equal to JAX's `commit_scan` and
 `device_commit_scan` -- packed top-k values and domain ids, committed
 values and domains -- over seeds, ragged gang counts (which shrink the
-chunk) and top_k in {1, 4, 8}. Demands and free capacity are random
-non-dyadic floats, so the residual scatter-adds must also accumulate in
-the same order. Tolerance: none (assert_array_equal). The CUDA kernel is
-held against `device_commit_scan_plain` on the card by chip_smoke.py.
+chunk), chunk sizes that do not divide G and top_k in {1, 4, 8}. Demands
+and free capacity are random non-dyadic floats, so the residual
+scatter-adds must also accumulate in the same order. The commit top-k
+wrapper also takes a chunk that does not divide G (a shorter last
+chunk), held against a row-by-row numpy reference. Tolerance: none
+(assert_array_equal). The CUDA kernels are held against these plain
+versions on the card by chip_smoke.py.
 """
 
 import jax
@@ -32,16 +36,19 @@ from grove_tpu_torch.solver.engine import (
     tie_jitter,
 )
 from grove_tpu_torch.solver.kernel_core import (
+    commit_topk_plain,
     device_commit_scan_plain,
     kernel_commit_scan,
+    kernel_commit_topk,
 )
 
 
 _jitted_commit_scan = jax.jit(_jax_commit_scan, static_argnames=("top_k", "chunk"))
 
 
-def jax_commit_scan(value, dom_free, anc_ids, td, top_k):
-    return _jitted_commit_scan(value, dom_free, anc_ids, td, top_k=top_k)
+def jax_commit_scan(value, dom_free, anc_ids, td, top_k, chunk=32):
+    return _jitted_commit_scan(value, dom_free, anc_ids, td, top_k=top_k,
+                               chunk=chunk)
 
 
 @pytest.fixture(scope="module")
@@ -175,3 +182,64 @@ def test_top_k_ties_take_lower_index_first():
     np.testing.assert_array_equal(out_dom.numpy(), np.asarray(ref_dom))
     np.testing.assert_array_equal(out_val.numpy(), np.asarray(ref_val))
     assert out_dom.numpy()[0].tolist() == [17, 0, 1, 2]
+
+
+@pytest.mark.parametrize("g,chunk", [(40, 24), (64, 48), (8, 3)])
+def test_commit_scan_chunk_not_dividing_g(spaces, g, chunk):
+    """The engine's commit_scan shrinks a chunk that does not divide G
+    to the largest divisor below it, as JAX's does."""
+    jsp, _ = spaces
+    value, dom_free, td = _scan_inputs(jsp, 5, g)
+    ref_val, ref_dom = jax_commit_scan(value, dom_free, jsp.anc_ids, td, 4,
+                                       chunk)
+    out_val, out_dom = commit_scan(
+        torch.from_numpy(value), torch.from_numpy(dom_free),
+        torch.from_numpy(jsp.anc_ids), torch.from_numpy(td), 4, chunk,
+    )
+    np.testing.assert_array_equal(out_val.numpy(), np.asarray(ref_val))
+    np.testing.assert_array_equal(out_dom.numpy(), np.asarray(ref_dom))
+
+
+def _numpy_commit_topk(jittered, dom_free, anc_ids, td, top_k, chunk):
+    """Row-by-row reference of the chunked commit scan, with a shorter
+    last chunk: select against the chunk-start residual, then commit the
+    chunk's first choices in row order, chain entry by chain entry."""
+    g, d = jittered.shape
+    resid = dom_free.copy()
+    top_val = np.empty((g, top_k), np.float32)
+    top_dom = np.empty((g, top_k), np.int32)
+    for start in range(0, g, chunk):
+        rows = range(start, min(start + chunk, g))
+        for i in rows:
+            fits = np.all(resid + np.float32(1e-6) >= td[i], axis=1)
+            row = np.where(fits, jittered[i], np.float32(-1e9))
+            order = np.argsort(-row, kind="stable")[:top_k]
+            top_val[i], top_dom[i] = row[order], order
+        for i in rows:
+            if top_val[i, 0] > -5e8:
+                for c in anc_ids[top_dom[i, 0]]:
+                    if c < d:
+                        resid[c] = resid[c] + (-td[i])
+    return top_val, top_dom
+
+
+@pytest.mark.parametrize("g,chunk", [(40, 32), (37, 5), (9, 16), (64, 32)])
+@pytest.mark.parametrize("top_k", [1, 8])
+def test_commit_topk_plain_ragged_chunk(spaces, g, chunk, top_k):
+    jsp, _ = spaces
+    value, dom_free, td = _scan_inputs(jsp, 9, g)
+    jittered = value + np.where(value > -5e8, np.float32(3e-5), np.float32(0))
+    ref_val, ref_dom = _numpy_commit_topk(jittered, dom_free, jsp.anc_ids, td,
+                                          top_k, chunk)
+    args = [torch.from_numpy(a) for a in (jittered, dom_free, jsp.anc_ids, td)]
+    out_val, out_dom = commit_topk_plain(*args, top_k, chunk)
+    np.testing.assert_array_equal(out_val.numpy(), ref_val)
+    np.testing.assert_array_equal(out_dom.numpy(), ref_dom)
+    # the wrapper on CPU tensors is the plain version, with no launch
+    before = kernel_commit_topk.launches
+    w_val, w_dom = kernel_commit_topk(*args, top_k, chunk)
+    assert kernel_commit_topk.launches == before
+    np.testing.assert_array_equal(w_val.numpy(), ref_val)
+    np.testing.assert_array_equal(w_dom.numpy(), ref_dom)
+    with pytest.raises(ValueError, match="chunk"):
+        kernel_commit_topk(*args, top_k, 0)

@@ -1,14 +1,22 @@
 """The whole slice: grove_tpu_torch's PlacementEngine vs the JAX package's.
 
 The same cluster and backlog, carried across with grove_tpu_torch.convert,
-go through JAX `PlacementEngine(snap, native_repair=False,
-incremental=False)` (the fit.py repair the port has) and the port's
-`PlacementEngine(snap, device="cpu")`, with default knobs on both sides
-and with the kernel tier on both sides (`pallas_core=True,
+go through JAX `PlacementEngine(snap, incremental=False, ...)` and the
+port's `PlacementEngine(snap, device="cpu", ...)` with the same knobs on
+both sides: default knobs, and the kernel tier (`pallas_core=True,
 device_commit=True`: JAX runs its Pallas kernel interpreted, the port the
-kernels' plain versions). Required, exactly: the same placed set, the same
+kernels' plain versions), each with the exact repair in C++
+(`native_repair=True`, the default) and with fit.py
+(`native_repair=False`). Required, exactly: the same placed set, the same
 node per pod, equal placement scores, the same unplaced gangs with the
 same message, UnsatCode and funnel, and the same repair fallbacks.
+
+The bf16 tier (`pallas_precision="bf16"` on the kernel tier) is held to
+the documented tie policy instead (docs/scheduling.md, bench.py's
+equivalence gate): against JAX's bf16 engine and against the port's own
+fp32 engine, the same placed set, the same unplaced reason codes and the
+same committed per-resource totals (np.allclose, rtol 1e-5, atol 1e-3);
+nodes may differ.
 """
 
 import numpy as np
@@ -82,6 +90,8 @@ KNOBS = {
     "kernel_tier": {"pallas_core": True, "device_commit": True},
 }
 
+BF16 = {"pallas_core": True, "device_commit": True, "pallas_precision": "bf16"}
+
 
 def _convert(snap, gangs):
     tsnap = snapshot_from_arrays(**{f: getattr(snap, f) for f in SNAPSHOT_FIELDS})
@@ -106,15 +116,18 @@ def assert_same_result(ref, out):
     assert out.stats.get("fallbacks") == ref.stats.get("fallbacks")
 
 
+@pytest.mark.parametrize("native_repair", [True, False],
+                         ids=["native", "fitpy"])
 @pytest.mark.parametrize("knobs", KNOBS)
 @pytest.mark.parametrize("case", CASES)
-def test_engine_matches_jax(case, knobs):
+def test_engine_matches_jax(case, knobs, native_repair):
     snap, gangs = CASES[case]()
     tsnap, tgangs = _convert(snap, gangs)
     ref = JaxEngine(
-        snap, native_repair=False, incremental=False, **KNOBS[knobs]
+        snap, native_repair=native_repair, incremental=False, **KNOBS[knobs]
     ).solve(gangs)
-    eng = PlacementEngine(tsnap, device="cpu", **KNOBS[knobs])
+    eng = PlacementEngine(tsnap, device="cpu", native_repair=native_repair,
+                          **KNOBS[knobs])
     assert (eng.pallas_core, eng.device_commit) == (bool(KNOBS[knobs]),) * 2
     out = eng.solve(tgangs)
     assert_same_result(ref, out)
@@ -125,6 +138,38 @@ def test_engine_matches_jax(case, knobs):
     if case == "masked_cordoned":
         codes = {r.code for r in out.unplaced.values()}
         assert {UnsatCode.UNRESOLVED_LEVEL, UnsatCode.ELIGIBILITY} <= codes
+
+
+def _unsat_codes(result):
+    return {name: reason.code.value for name, reason in result.unplaced.items()}
+
+
+def assert_tie_policy(ref, ref_free, out, out_free):
+    """bf16's contract: placed set, unplaced reason codes and committed
+    per-resource totals (bench.py's bf16 tie-policy gate)."""
+    assert sorted(out.placed) == sorted(ref.placed)
+    assert _unsat_codes(out) == _unsat_codes(ref)
+    assert np.allclose(out_free.sum(axis=0), ref_free.sum(axis=0),
+                       rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_engine_bf16_keeps_jax_tie_policy(case):
+    snap, gangs = CASES[case]()
+    tsnap, tgangs = _convert(snap, gangs)
+    ref_free = snap.free.copy()
+    ref = JaxEngine(snap, incremental=False, **BF16).solve(gangs, free=ref_free)
+    eng = PlacementEngine(tsnap, device="cpu", **BF16)
+    assert (eng.pallas_core, eng.device_commit, eng.pallas_precision) == (
+        True, True, "bf16")
+    out_free = tsnap.free.copy()
+    out = eng.solve(tgangs, free=out_free)
+    assert_tie_policy(ref, ref_free, out, out_free)
+    # and against the port's own fp32 tier
+    fp32_free = tsnap.free.copy()
+    fp32 = PlacementEngine(tsnap, device="cpu", **KNOBS["kernel_tier"]).solve(
+        tgangs, free=fp32_free)
+    assert_tie_policy(fp32, fp32_free, out, out_free)
 
 
 @pytest.mark.parametrize("case", CASES)

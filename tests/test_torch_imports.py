@@ -4,7 +4,7 @@ Checked twice: a fresh interpreter imports every module of the package
 and finds neither in sys.modules, and an AST scan of every
 grove_tpu_torch/**/*.py file and of chip_smoke.py finds no such import.
 Also: each CUDA source the kernels are built from exists and is named in
-grove_tpu_torch/build.py.
+grove_tpu_torch/build.py, and the native repair's modules are scanned.
 """
 
 import ast
@@ -71,5 +71,15 @@ def test_cuda_sources_exist_and_are_built():
     on_disk = {
         str(p.relative_to(PACKAGE)) for p in (PACKAGE / "csrc").glob("*.cu")
     }
-    assert on_disk == {"csrc/value_kernel.cu", "csrc/commit_scan.cu"}
+    assert on_disk == {"csrc/value_kernel.cu", "csrc/commit_scan.cu",
+                       "csrc/commit_topk.cu"}
     assert named == on_disk
+
+
+def test_native_modules_are_scanned():
+    """The native repair's modules are among those both checks above
+    cover, and its C++ source sits beside them."""
+    mods = set(_modules())
+    assert {"grove_tpu_torch.native", "grove_tpu_torch.native.build",
+            "grove_tpu_torch.native.serial_native"} <= mods
+    assert (PACKAGE / "native" / "serial_scorer.cpp").is_file()
