@@ -43,10 +43,11 @@ from ..native.serial_native import repair_native
 from ..observability.explain import diagnose_unplaced
 from ..topology.encoding import TopologySnapshot
 from .fit import place_gang_in_domain, placement_score_for_nodes
-from .kernel_core import (
+from .kernel_core import (  # noqa: F401  (tie_jitter: re-exported)
     kernel_commit_scan,
     kernel_commit_topk,
     kernel_value,
+    tie_jitter,
     value_plain,
 )
 from .problem import SolverGang
@@ -54,7 +55,6 @@ from .result import GangPlacement, SolveResult
 from .serial import _place_one, gang_sort_key, stamp_fairness
 
 _NEG = -1e9
-_U32 = 0xFFFFFFFF
 
 
 def _bucket(n: int, minimum: int = 8) -> int:
@@ -62,6 +62,25 @@ def _bucket(n: int, minimum: int = 8) -> int:
     rows change the commit scan's chunking and jitter, so the port keeps
     it to stay bit-equal)."""
     return max(minimum, 1 << max(0, math.ceil(math.log2(max(n, 1)))))
+
+
+def check_anc_columns(anc_ids: np.ndarray, dom_level: np.ndarray) -> None:
+    """Raise ValueError unless column j of the ancestor table holds only
+    domains of level j - 1 (column 0 the root), ignoring the padding id
+    num_domains. Both commit kernels rely on it: a domain then appears in
+    one column only, so committing a chunk column by column keeps each
+    domain's adds in row order (the row-major scatter's order), and a
+    chain names each domain at most once."""
+    num_domains = dom_level.shape[0]
+    for j in range(anc_ids.shape[1]):
+        ids = anc_ids[:, j]
+        ids = ids[ids != num_domains]
+        if ids.size and not np.all(dom_level[ids] == j - 1):
+            bad = sorted(set(dom_level[ids].tolist()) - {j - 1})
+            raise ValueError(
+                f"anc_ids column {j} holds domains of levels {bad}, not only "
+                f"level {j - 1}: the commit kernels need one level per column"
+            )
 
 
 class DomainSpace:
@@ -99,6 +118,7 @@ class DomainSpace:
             level = dom_level[d]
             chain = gdom[: level + 2, member[d]]  # root .. own level
             anc_ids[d, : len(chain)] = chain
+        check_anc_columns(anc_ids, dom_level)
         self.anc_ids = anc_ids
 
     def nodes_of(self, global_dom: int, sched_nodes: np.ndarray) -> tuple[np.ndarray, int]:
@@ -134,28 +154,6 @@ def membership_matrix(gdom: torch.Tensor, num_domains: int) -> torch.Tensor:
 value_from_aggregates = value_plain
 
 
-def _mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2**32 for int64 x in [0, 2**32): the constant is split
-    into 16-bit halves so no partial product leaves int64 (torch has no
-    uint32 arithmetic to wrap for us)."""
-    lo, hi = c & 0xFFFF, c >> 16
-    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _U32
-
-
-def tie_jitter(g: int, d: int, device) -> torch.Tensor:
-    """[G, D] f32 deterministic tie-break jitter in [0, 1e-4), far below
-    the value function's quanta: murmur-style uint32 hash mixing of
-    (gang row, domain), computed in int64 masked to 32 bits. Bit-equal to
-    the JAX engine's uint32 jitter."""
-    gi = torch.arange(g, dtype=torch.int64, device=device)[:, None]
-    di = torch.arange(d, dtype=torch.int64, device=device)[None, :]
-    h = (_mul_u32(gi, 0x9E3779B1) + _mul_u32(di, 0x85EBCA77)) & _U32
-    h = h ^ (h >> 13)
-    h = _mul_u32(h, 0xC2B2AE35)
-    h = h ^ (h >> 16)
-    return 1e-4 * (h.to(torch.float32) / 2.0 ** 32)
-
-
 def commit_scan(value, dom_free, anc_ids, total_demand, top_k: int,
                 chunk: int = 32):
     """Contention pass: virtual commit in priority order (= row order),
@@ -167,17 +165,15 @@ def commit_scan(value, dom_free, anc_ids, total_demand, top_k: int,
     collisions can transiently overcommit a domain; the exact host repair
     resolves them. Returns (top_val [G, K] f32, top_dom [G, K] i32).
 
-    The jitter is a few elementwise torch ops; the scan itself is
-    `kernel_commit_topk` (csrc/commit_topk.cu on the card, the plain loop
-    `commit_topk_plain` on the CPU)."""
-    g_total, d = value.shape
+    Jitter and scan are `kernel_commit_topk` (csrc/commit_topk.cu on the
+    card, `tie_jitter` and the plain loop `commit_topk_plain` on the
+    CPU)."""
+    g_total = value.shape[0]
     chunk = max(1, min(chunk, g_total))
     while g_total % chunk:
         chunk -= 1  # g_total is a power-of-two bucket; chunk normally stays 32
-    jittered = torch.where(value > _NEG / 2,
-                           value + tie_jitter(g_total, d, value.device), value)
-    return kernel_commit_topk(jittered, dom_free, anc_ids, total_demand,
-                              top_k, chunk)
+    return kernel_commit_topk(value, dom_free, anc_ids, total_demand, top_k,
+                              chunk)
 
 
 def resolve_device(device) -> torch.device:

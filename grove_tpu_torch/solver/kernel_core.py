@@ -17,9 +17,10 @@ beside its plain PyTorch twin:
   score-equal, not bit-equal (XLA rounds at other places).
 - `kernel_commit_topk` (csrc/commit_topk.cu) replaces the chunked
   `commit_scan` (grove_tpu/solver/engine.py, a `lax.scan` over
-  `lax.top_k`): per chunk of gangs, each gang's top-k residually feasible
-  domains, then the chunk's first choices committed down their ancestor
-  chains in row order. Its plain twin is `commit_topk_plain`.
+  `lax.top_k`), the murmur tie jitter included: per chunk of gangs, each
+  gang's top-k residually feasible domains, then the chunk's first
+  choices committed down their ancestor chains in row order. Its plain
+  twin is `commit_topk_plain` (`tie_jitter`, then the chunk loop).
 - `kernel_commit_scan` (csrc/commit_scan.cu) replaces `device_commit_scan`:
   the greedy walk over each gang's packed top-k against a residual
   aggregate-capacity mirror, shipping one committed (value, domain) pair
@@ -44,18 +45,25 @@ import torch
 from ..build import load
 
 _NEG = -1e9
+_U32 = 0xFFFFFFFF
 
-#: the commit kernel gives one lane of one warp to each candidate (the
-#: feasibility test) and to each resource (the chain decrement)
+#: the device-commit kernel gives one lane of its walker warp to each
+#: candidate (the feasibility test)
 _WARP = 32
 
 #: shared memory one block may use on Hopper (227 KB); both commit
 #: kernels keep their residual there
 _SMEM_BYTES = 232448
 
-#: the commit top-k kernel selects one candidate per block-wide round; it
-#: takes at most this many (the engine asks for 8)
+#: the commit top-k kernel keeps a sorted list of up to this many keys per
+#: thread (the engine asks for 8)
 _TOPK_MAX = 32
+
+#: the commit top-k kernel's threads per block, and so its warp lists
+_TOPK_WARPS = 512 // _WARP
+
+#: the device-commit kernel's ring: slots of gangs staged ahead of the walker
+_RING_SLOTS, _RING_TILE = 3, 64
 
 _VALUE_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _COMMIT_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -138,24 +146,48 @@ def value_plain_bf16(
 VALUE_PLAIN = {"fp32": value_plain, "bf16": value_plain_bf16}
 
 
-def commit_topk_plain(jittered, dom_free, anc_ids, total_demand, top_k: int,
+def _mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for int64 x in [0, 2**32): the constant is split
+    into 16-bit halves so no partial product leaves int64 (torch has no
+    uint32 arithmetic to wrap for us)."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _U32
+
+
+def tie_jitter(g: int, d: int, device) -> torch.Tensor:
+    """[G, D] f32 deterministic tie-break jitter in [0, 1e-4), far below
+    the value function's quanta: murmur-style uint32 hash mixing of
+    (gang row, domain), computed in int64 masked to 32 bits. Bit-equal to
+    the JAX engine's uint32 jitter (and to the commit top-k kernel's)."""
+    gi = torch.arange(g, dtype=torch.int64, device=device)[:, None]
+    di = torch.arange(d, dtype=torch.int64, device=device)[None, :]
+    h = (_mul_u32(gi, 0x9E3779B1) + _mul_u32(di, 0x85EBCA77)) & _U32
+    h = h ^ (h >> 13)
+    h = _mul_u32(h, 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    return 1e-4 * (h.to(torch.float32) / 2.0 ** 32)
+
+
+def commit_topk_plain(value, dom_free, anc_ids, total_demand, top_k: int,
                       chunk: int):
-    """The chunked commit scan, plain PyTorch: gangs `chunk` rows at a
-    time (the last chunk may be shorter) each keep their top_k domains
-    that are residually feasible against the chunk-start residual
-    (`+ 1e-6` epsilon; infeasible domains score -1e9), ordered by value
-    descending then index ascending as lax.top_k orders them; then every
-    row's first choice (if its value > -5e8) subtracts the row's demand
-    from the domain's ancestor chain, rows in order and chains in order
-    (JAX's flattened [C, L+1] scatter). `jittered` is the value tensor with
-    the commit scan's tie jitter already added. Returns (top_val [G, K]
-    f32, top_dom [G, K] i32).
+    """The chunked commit scan, plain PyTorch: the tie jitter is added to
+    every live value (> -5e8); then gangs `chunk` rows at a time (the last
+    chunk may be shorter) each keep their top_k domains that are
+    residually feasible against the chunk-start residual (`+ 1e-6`
+    epsilon; infeasible domains score -1e9), ordered by value descending
+    then index ascending as lax.top_k orders them; then every row's first
+    choice (if its value > -5e8) subtracts the row's demand from the
+    domain's ancestor chain, rows in order and chains in order (JAX's
+    flattened [C, L+1] scatter). Returns (top_val [G, K] f32, top_dom
+    [G, K] i32).
 
     On the CPU the scatter-add runs in that order. On CUDA, index_add_
     adds with atomics in no fixed order, so the card's result may differ
     in the last bit wherever demands are not dyadic: the card runs
     `kernel_commit_topk` instead."""
-    g_total, d = jittered.shape
+    g_total, d = value.shape
+    jittered = torch.where(value > _NEG / 2,
+                           value + tie_jitter(g_total, d, value.device), value)
     r = dom_free.shape[1]
     resid = torch.cat([dom_free, dom_free.new_zeros((1, r))], dim=0)
     l1 = anc_ids.shape[1]
@@ -294,19 +326,25 @@ def kernel_value(dom_free, cnt_fit, dom_level, total_demand, required_level,
 kernel_value.launches = dict.fromkeys(VALUE_PLAIN, 0)
 
 
-def kernel_commit_topk(jittered, dom_free, anc_ids, total_demand,
+def kernel_commit_topk(value, dom_free, anc_ids, total_demand,
                        top_k: int, chunk: int):
     """(top_val [G, K] f32, top_dom [G, K] i32) via csrc/commit_topk.cu
-    (the drop-in for `commit_topk_plain`). Plain version for CPU tensors;
-    for CUDA tensors, the kernel: one cooperative launch whose blocks (one
-    per chunk row, all co-resident) select in parallel and commit each
-    chunk in row order, so the residual is the same on every run."""
+    (the drop-in for `commit_topk_plain`), from the UN-jittered value
+    tensor: the kernel adds the tie jitter itself. Plain version for CPU
+    tensors; for CUDA tensors, the kernel: one cooperative launch whose
+    blocks (one per chunk row, all co-resident) select in parallel and
+    commit each chunk, so the residual is the same on every run.
+
+    Precondition: column j of `anc_ids` holds only domains of level j - 1
+    (as `DomainSpace` builds it, and checks). The kernel commits a chunk
+    column by column, each column's domains in row order, which equals
+    the row-major scatter only when no domain appears in two columns."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    if not _launches_kernel(jittered):
-        return commit_topk_plain(jittered, dom_free, anc_ids, total_demand,
+    if not _launches_kernel(value):
+        return commit_topk_plain(value, dom_free, anc_ids, total_demand,
                                  top_k, chunk)
-    g, d = jittered.shape
+    g, d = value.shape
     r = dom_free.shape[1]
     l1 = anc_ids.shape[1]
     if not (1 <= top_k <= min(_TOPK_MAX, d)):
@@ -316,16 +354,16 @@ def kernel_commit_topk(jittered, dom_free, anc_ids, total_demand,
         )
     if r < 1:
         raise ValueError("commit top-k kernel needs at least one resource")
-    smem = (d * r + d + min(chunk, g) * l1) * 4
+    smem = _TOPK_WARPS * top_k * 8 + (d * r + d + r) * 4
     if smem > _SMEM_BYTES:
         raise ValueError(
             f"commit top-k kernel keeps a [{d}, {r}] residual, a [{d}] row "
-            f"and the chunk's chains in shared memory: {smem} bytes, above "
-            f"the {_SMEM_BYTES} a block holds"
+            f"and its warps' top-k lists in shared memory: {smem} bytes, "
+            f"above the {_SMEM_BYTES} a block holds"
         )
-    dev = jittered.device
+    dev = value.device
     f32, i32 = torch.float32, torch.int32
-    _check("jittered", jittered, f32, (g, d), dev)
+    _check("value", value, f32, (g, d), dev)
     _check("dom_free", dom_free, f32, (d, r), dev)
     _check("anc_ids", anc_ids, i32, (d, l1), dev)
     _check("total_demand", total_demand, f32, (g, r), dev)
@@ -333,7 +371,7 @@ def kernel_commit_topk(jittered, dom_free, anc_ids, total_demand,
     top_dom = torch.empty((g, top_k), dtype=i32, device=dev)
     fn = load("commit_topk").grove_commit_topk
     fn.argtypes, fn.restype = _TOPK_ARGTYPES, ctypes.c_int
-    rc = fn(_ptr(jittered), _ptr(dom_free), _ptr(anc_ids), _ptr(total_demand),
+    rc = fn(_ptr(value), _ptr(dom_free), _ptr(anc_ids), _ptr(total_demand),
             _ptr(top_val), _ptr(top_dom), g, d, r, l1, top_k, chunk,
             _stream(dev))
     _raise_on(rc, "commit top-k kernel")
@@ -347,22 +385,27 @@ kernel_commit_topk.launches = 0
 def kernel_commit_scan(top_val, top_dom, dom_free, anc_ids, total_demand):
     """([G, 1] committed value, [G, 1] committed domain) via
     csrc/commit_scan.cu (the drop-in for `device_commit_scan_plain`).
-    Plain version for CPU tensors; for CUDA tensors, the kernel."""
+    Plain version for CPU tensors; for CUDA tensors, the kernel: one block
+    whose walker warp decrements a chain's cells all at once, which needs
+    the chains to name each domain at most once (true of an `anc_ids`
+    built by `DomainSpace`, which checks its columns)."""
     if not _launches_kernel(top_val):
         return device_commit_scan_plain(top_val, top_dom, dom_free, anc_ids,
                                         total_demand)
     g, k = top_val.shape
     d, r = dom_free.shape
     l1 = anc_ids.shape[1]
-    if not (1 <= k <= _WARP and 1 <= r <= _WARP):
+    if not (1 <= k <= _WARP and r >= 1):
         raise ValueError(
-            f"commit kernel takes 1..{_WARP} candidates and resources, "
-            f"got {k} and {r}"
+            f"commit kernel gives each candidate a lane: 1..{_WARP} "
+            f"candidates and at least one resource, got {k} and {r}"
         )
-    if (d + 1) * r * 4 > _SMEM_BYTES:
+    smem = (d * r + _RING_SLOTS * _RING_TILE * (2 * k + r + k * l1)) * 4
+    if smem > _SMEM_BYTES:
         raise ValueError(
-            f"commit kernel keeps the [{d + 1}, {r}] residual in shared "
-            f"memory, which holds {_SMEM_BYTES} bytes"
+            f"commit kernel keeps the [{d}, {r}] residual and a ring of "
+            f"{_RING_SLOTS} x {_RING_TILE} staged gangs in shared memory: "
+            f"{smem} bytes, above the {_SMEM_BYTES} a block holds"
         )
     dev = top_val.device
     f32, i32 = torch.float32, torch.int32
@@ -411,6 +454,7 @@ __all__ = [
     "kernel_value",
     "launch_counts",
     "reset_launches",
+    "tie_jitter",
     "value_plain",
     "value_plain_bf16",
 ]

@@ -3,7 +3,8 @@
 A backlog of 8-pod gangs (1000 at full size) over a kwok-style simulated
 cluster (5000 nodes) with a 3-tier block/rack/host topology: the same
 cluster and backlog as the JAX package's bench.py (`make_cluster`,
-`make_gangs`), copied here so chip_smoke.py needs nothing of grove_tpu.
+`make_gangs`, and the 4-tier `make_tier_cluster`), copied here so
+chip_smoke.py needs nothing of grove_tpu.
 """
 
 from __future__ import annotations
@@ -33,6 +34,37 @@ def make_cluster(num_nodes: int):
         )
     ct = default_cluster_topology(
         [
+            TopologyLevel(domain="block", key="t/block"),
+            TopologyLevel(domain="rack", key="t/rack"),
+        ]
+    )
+    return encode_topology(ct, nodes)
+
+
+def make_tier_cluster(num_nodes: int):
+    """4-tier topology: zone (4096 nodes) > block (256) > rack (16) >
+    host, as the JAX package's bench.py `make_tier_cluster` builds it."""
+    nodes = []
+    for i in range(num_nodes):
+        z, zr = divmod(i, 4096)
+        b = zr // 256
+        r = (zr % 256) // 16
+        nodes.append(
+            Node(
+                metadata=ObjectMeta(
+                    name=f"n{i}",
+                    labels={
+                        "t/zone": f"z{z}",
+                        "t/block": f"z{z}b{b}",
+                        "t/rack": f"z{z}b{b}r{r}",
+                    },
+                ),
+                allocatable={"cpu": 32.0, "memory": 128.0, "tpu": 8.0},
+            )
+        )
+    ct = default_cluster_topology(
+        [
+            TopologyLevel(domain="zone", key="t/zone"),
             TopologyLevel(domain="block", key="t/block"),
             TopologyLevel(domain="rack", key="t/rack"),
         ]
