@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 from pathlib import Path
 
@@ -92,6 +93,42 @@ def build(names=None) -> dict[str, str]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs
+
+
+def _kernel_name(mangled: str) -> str:
+    """`ns::value_kernel<0,3,1>` style name of a mangled kernel: the last
+    identifier of its nested name, with its integer template arguments."""
+    start = mangled.find("_ZN")
+    if start < 0:
+        return mangled
+    pos, ids = start + 3, []
+    while pos < len(mangled) and mangled[pos].isdigit():
+        digits = re.match(r"\d+", mangled[pos:]).group()
+        pos += len(digits)
+        ids.append(mangled[pos:pos + int(digits)])
+        pos += int(digits)
+    if not ids:
+        return mangled
+    args = re.match(r"I((?:L[a-z]+-?\d+E)+)E", mangled[pos:])
+    return ids[-1] + ("<" + ",".join(re.findall(r"L[a-z]+(-?\d+)E",
+                                                  args.group(1))) + ">"
+                      if args else "")
+
+
+def ptxas_lines(log: str) -> list[str]:
+    """One line per kernel of an `-Xptxas=-v` log: the kernel's name with
+    its template arguments (`value_kernel<0,3,1>`), its registers, spills
+    and shared memory."""
+    lines, name, spill = [], "?", ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = _kernel_name(m.group(1))
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            lines.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+    return lines
 
 
 def load(name: str) -> ctypes.CDLL:

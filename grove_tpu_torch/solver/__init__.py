@@ -18,10 +18,13 @@ from .kernel_core import (
     kernel_commit_scan,
     kernel_commit_topk,
     kernel_value,
+    kernel_value_sig,
     launch_counts,
     reset_launches,
     value_plain,
     value_plain_bf16,
+    value_sig_plain,
+    value_sig_plain_bf16,
 )
 from .problem import SolverGang
 from .result import GangPlacement, SolveResult
@@ -37,6 +40,7 @@ __all__ = [
     "kernel_commit_scan",
     "kernel_commit_topk",
     "kernel_value",
+    "kernel_value_sig",
     "launch_counts",
     "place_gang_in_domain",
     "placement_score_for_nodes",
@@ -44,4 +48,6 @@ __all__ = [
     "solve_serial",
     "value_plain",
     "value_plain_bf16",
+    "value_sig_plain",
+    "value_sig_plain_bf16",
 ]

@@ -10,8 +10,10 @@ domains one at a time with exact checks, this engine evaluates EVERY
      pack levels, fairness, and the deduped eligibility signatures.
   2. Device phase (torch): the one-hot membership matrix M (built once
      per engine), the domain aggregates dom_free = M^T free and the
-     per-signature fit counts cnt_fit = node_fits M (plain fp32
-     products), the value tensor (csrc/value_kernel.cu, fp32 or bf16),
+     per-signature fit counts sig_cnt = node_fits M (plain fp32
+     products), the value tensor straight from sig_cnt and each gang's
+     signature rows (csrc/value_kernel.cu, fp32 or bf16, which takes the
+     min over a gang's signatures itself),
      the chunked greedy commit scan with top-k alternates
      (csrc/commit_topk.cu), and the on-device greedy commit
      (csrc/commit_scan.cu).
@@ -44,9 +46,10 @@ from ..observability.explain import diagnose_unplaced
 from ..topology.encoding import TopologySnapshot
 from .fit import place_gang_in_domain, placement_score_for_nodes
 from .kernel_core import (  # noqa: F401  (tie_jitter: re-exported)
+    gather_min,
     kernel_commit_scan,
     kernel_commit_topk,
-    kernel_value,
+    kernel_value_sig,
     tie_jitter,
     value_plain,
 )
@@ -81,6 +84,36 @@ def check_anc_columns(anc_ids: np.ndarray, dom_level: np.ndarray) -> None:
                 f"anc_ids column {j} holds domains of levels {bad}, not only "
                 f"level {j - 1}: the commit kernels need one level per column"
             )
+
+
+def check_sig_idx(sig_idx: np.ndarray, num_sigs: int) -> None:
+    """Raise ValueError unless every signature index lies in [0, U):
+    checked on the host array before upload, since the value kernel reads
+    sig_cnt rows by these indices."""
+    if sig_idx.size and (sig_idx.min() < 0 or sig_idx.max() >= num_sigs):
+        raise ValueError(
+            f"sig_idx holds indices in [{sig_idx.min()}, {sig_idx.max()}], "
+            f"outside the {num_sigs} signature rows"
+        )
+
+
+def demand_table(total_demand: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The distinct rows of a host [G, R] f32 demand array, by their bits
+    (so -0.0 and 0.0 stay apart, and NaN rows merge only where their bits
+    agree), and
+    each row's index into them: (demand [T, R] f32, demand_idx [G] i32),
+    with total_demand == demand[demand_idx] bit for bit."""
+    rows = np.ascontiguousarray(total_demand, dtype=np.float32)
+    if rows.shape[0] == 0:
+        return rows, np.zeros((0,), np.int32)
+    bits = rows.view(np.uint32)
+    order = np.lexsort(bits.T)                  # equal rows end up adjacent
+    sorted_bits = bits[order]
+    first = np.ones(len(order), dtype=bool)
+    first[1:] = (sorted_bits[1:] != sorted_bits[:-1]).any(axis=1)
+    demand_idx = np.empty(len(order), dtype=np.int32)
+    demand_idx[order] = np.cumsum(first) - 1
+    return rows[order[first]], demand_idx
 
 
 class DomainSpace:
@@ -256,7 +289,7 @@ class PlacementEngine:
         #: the fit.py primitives
         self.native_repair = native_repair
         if self.device.type == "cuda":
-            # dom_free = M^T free and cnt_fit = node_fits M must stay exact
+            # dom_free = M^T free and sig_cnt = node_fits M must stay exact
             # integer sums; TF32 would round their operands to 10 mantissa
             # bits. PyTorch's default is off, but the flag is process-wide,
             # so the engine pins it.
@@ -386,37 +419,52 @@ class PlacementEngine:
         elig_masks[: len(mask_rows)] = np.stack(mask_rows)
         return u_sig_demand, u_sig_mask, elig_masks, sig_idx
 
-    def _score_values(self, enc: EncodedBacklog, free: np.ndarray):
-        """The value tensor from the masked free state. Returns (value
-        [G, D] f32, dom_free [D, R] f32, total_demand [G, R] f32), all on
-        the engine's device."""
+    def _value_args(self, enc: EncodedBacklog, free: np.ndarray):
+        """The value kernel's operands on the engine's device, from the
+        masked free state: (dom_free [D, R], sig_cnt [U, D], sig_idx
+        [G, S], dom_level, demand [T, R], demand_idx [G], required_level,
+        preferred_level, valid, cap_scale, fairness), the demand rows
+        deduped on the host (`demand_table`)."""
         dom_level, _anc_ids, cap_scale, m = self._ensure_statics()
         u_sig_demand, u_sig_mask, elig_masks, sig_idx = enc.sig
+        check_sig_idx(sig_idx, u_sig_demand.shape[0])
+        demand, demand_idx = demand_table(enc.total_demand)
         free_d = self._to_device(self._masked_free(free))
-        total_demand = self._to_device(enc.total_demand)
         dom_free = m.T @ free_d                                 # [D, R]
         # Node-granularity proxy: per signature (= unique max-pod demand x
         # node-eligibility mask pair), #nodes per domain that fit AND are
-        # eligible; a gang's count is the MIN over its signatures.
+        # eligible; a gang's count is the MIN over its signatures, taken
+        # by the value kernel (or by gather_min on the non-kernel tier).
         u_dem = self._to_device(u_sig_demand)
         masks = self._to_device(elig_masks)[self._to_device(u_sig_mask)]
         node_fits = (
             (free_d[None, :, :] + 1e-6 >= u_dem[:, None, :]).all(dim=-1)
             .to(torch.float32) * masks
         )                                                       # [U, N]
-        cnt_fit = (node_fits @ m)[self._to_device(sig_idx)].amin(dim=1)
-        args = (
-            dom_free, cnt_fit, dom_level, total_demand,
+        return (
+            dom_free, node_fits @ m, self._to_device(sig_idx), dom_level,
+            self._to_device(demand), self._to_device(demand_idx),
             self._to_device(enc.required_level),
             self._to_device(enc.preferred_level),
             self._to_device(enc.valid), cap_scale,
             self._to_device(enc.fairness),
         )
+
+    def _score_values(self, enc: EncodedBacklog, free: np.ndarray):
+        """The value tensor from the masked free state. Returns (value
+        [G, D] f32, dom_free [D, R] f32, total_demand [G, R] f32), all on
+        the engine's device."""
+        args = self._value_args(enc, free)
+        total_demand = self._to_device(enc.total_demand)
         if self.pallas_core:
-            value = kernel_value(*args, precision=self.pallas_precision)
+            value = kernel_value_sig(*args, precision=self.pallas_precision)
         else:
-            value = value_from_aggregates(*args)
-        return value, dom_free, total_demand
+            dom_free, sig_cnt, sig_idx, dom_level, _, _, *rest = args
+            value = value_from_aggregates(
+                dom_free, gather_min(sig_cnt, sig_idx), dom_level,
+                total_demand, *rest,
+            )
+        return value, args[0], total_demand
 
     def _score_core(self, enc: EncodedBacklog, free: np.ndarray):
         """Device scoring body: value tensor + chunked commit scan. Returns
@@ -451,6 +499,13 @@ class PlacementEngine:
             key=gang_sort_key,
         )
         return self._encode_arrays(order)
+
+    def value_inputs(self, gangs: list[SolverGang],
+                     free: np.ndarray | None = None):
+        """The value kernel's operands for this backlog, on the device:
+        the arguments of `kernel_value_sig` (see `_value_args`)."""
+        free = self.snapshot.free if free is None else free
+        return self._value_args(self._encode_backlog(gangs), free)
 
     def score_values(self, gangs: list[SolverGang],
                      free: np.ndarray | None = None):

@@ -5,16 +5,25 @@ CUDA kernels (sources in grove_tpu_torch/csrc/, built by
 grove_tpu_torch/build.py for sm_90a and called through ctypes), each
 beside its plain PyTorch twin:
 
-- `kernel_value` (csrc/value_kernel.cu) replaces `_value_kernel` /
-  `pallas_value`: the [G, D] value tensor -- hierarchy mask, per-level
-  score, preference bonus, squashed best-fit slack and fairness offset in
-  one pass, in either precision. fp32: its plain twin `value_plain`
-  keeps the arithmetic and operation order of `value_from_aggregates`, so
-  the two are bit-equal (and bit-equal to the JAX package). bf16: its
-  plain twin `value_plain_bf16` is a chain of bf16 torch ops, each
-  computed in fp32 and rounded to bf16; the kernel rounds at the same
-  places and is bit-equal to it. Against JAX's bf16 tier it is
-  score-equal, not bit-equal (XLA rounds at other places).
+- `kernel_value_sig` (csrc/value_kernel.cu) replaces `_value_kernel` /
+  `pallas_value` together with the gather and min that feed it: the
+  [G, D] value tensor straight from the per-signature fit counts
+  `sig_cnt` [U, D] and each gang's signature rows `sig_idx` [G, S],
+  and the gangs' demand rows deduped into a table [T, R] with each gang's
+  row `demand_idx` [G] -- the count test (min over S >= 1), hierarchy
+  mask, per-level score, preference bonus, squashed best-fit slack and
+  fairness offset in one pass, in either precision. Its plain twins
+  `value_sig_plain` / `value_sig_plain_bf16` gather and take the min,
+  then run `value_plain` / `value_plain_bf16`. `kernel_value` is the same
+  kernel behind the interface of the earlier slices, the S = 1 case: it
+  takes a [G, D] `cnt_fit` (as `sig_cnt`, with `sig_idx = arange(G)`)
+  and a demand row a gang. fp32:
+  `value_plain` keeps the arithmetic and operation order of
+  `value_from_aggregates`, so kernel and twin are bit-equal (and
+  bit-equal to the JAX package). bf16: `value_plain_bf16` is a chain of
+  bf16 torch ops, each computed in fp32 and rounded to bf16; the kernel
+  rounds at the same places and is bit-equal to it. Against JAX's bf16
+  tier it is score-equal, not bit-equal (XLA rounds at other places).
 - `kernel_commit_topk` (csrc/commit_topk.cu) replaces the chunked
   `commit_scan` (grove_tpu/solver/engine.py, a `lax.scan` over
   `lax.top_k`), the murmur tie jitter included: per chunk of gangs, each
@@ -31,9 +40,10 @@ the CPU tests, the counterpart of JAX's interpret mode. For a CUDA tensor
 it launches the kernel or raises: a failed build, a refused launch or an
 unsupported shape is an error, never a silent fallback. Each wrapper
 counts the launches of its kernel (a plain int, incremented only where
-the kernel is launched): `kernel_value.launches` per precision, the
-others in `<wrapper>.launches`; `launch_counts()` reads them all by
-kernel name and `reset_launches()` sets them to 0.
+the kernel is launched): `kernel_value.launches` and
+`kernel_value_sig.launches` per precision, the others in
+`<wrapper>.launches`; `launch_counts()` reads them all by kernel name and
+`reset_launches()` sets them to 0.
 """
 
 from __future__ import annotations
@@ -65,12 +75,12 @@ _TOPK_WARPS = 512 // _WARP
 #: the device-commit kernel's ring: slots of gangs staged ahead of the walker
 _RING_SLOTS, _RING_TILE = 3, 64
 
-_VALUE_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_VALUE_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _COMMIT_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _TOPK_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 #: value-kernel precisions and their C entry points
-_VALUE_ENTRY = {"fp32": "grove_value", "bf16": "grove_value_bf16"}
+_VALUE_ENTRY = {"fp32": "grove_value_sig", "bf16": "grove_value_sig_bf16"}
 
 
 def value_plain(
@@ -142,8 +152,39 @@ def value_plain_bf16(
     return torch.where(static_mask, value.to(torch.float32), _NEG)
 
 
-#: the plain twin of the value kernel, by precision
+#: the plain twin of the value kernel's S = 1 interface, by precision
 VALUE_PLAIN = {"fp32": value_plain, "bf16": value_plain_bf16}
+
+
+def gather_min(sig_cnt, sig_idx):
+    """cnt_fit [G, D] = min over S of sig_cnt[sig_idx[g, s]]: each gang's
+    per-domain count of nodes that fit, the least over its signatures."""
+    return sig_cnt[sig_idx.long()].amin(dim=1)
+
+
+def value_sig_plain(dom_free, sig_cnt, sig_idx, dom_level, demand, demand_idx,
+                    required_level, preferred_level, valid, cap_scale,
+                    fairness=None):
+    """value[G, D] from the per-signature fit counts (sig_cnt f32 [U, D],
+    sig_idx i32 [G, S]) and the demand table (demand f32 [T, R],
+    demand_idx i32 [G]), plain PyTorch: the gathers and the min, then
+    `value_plain`."""
+    return value_plain(dom_free, gather_min(sig_cnt, sig_idx), dom_level,
+                       demand[demand_idx.long()], required_level,
+                       preferred_level, valid, cap_scale, fairness)
+
+
+def value_sig_plain_bf16(dom_free, sig_cnt, sig_idx, dom_level, demand,
+                         demand_idx, required_level, preferred_level, valid,
+                         cap_scale, fairness=None):
+    """`value_sig_plain` with the score chain of `value_plain_bf16`."""
+    return value_plain_bf16(dom_free, gather_min(sig_cnt, sig_idx), dom_level,
+                            demand[demand_idx.long()], required_level,
+                            preferred_level, valid, cap_scale, fairness)
+
+
+#: the plain twin of the fused value kernel, by precision
+VALUE_SIG_PLAIN = {"fp32": value_sig_plain, "bf16": value_sig_plain_bf16}
 
 
 def _mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -258,6 +299,8 @@ def _launches_kernel(t: torch.Tensor) -> bool:
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -281,32 +324,41 @@ def _raise_on(rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
 
 
-def kernel_value(dom_free, cnt_fit, dom_level, total_demand, required_level,
-                 preferred_level, valid, cap_scale, fairness, *,
-                 precision: str = "fp32"):
-    """value[G, D] via csrc/value_kernel.cu in `precision` ("fp32" or
-    "bf16"): the drop-in for `value_plain` / `value_plain_bf16` (fairness
-    is required, as every engine path passes it). Plain version for CPU
-    tensors; for CUDA tensors, the kernel."""
+def _check_precision(precision: str) -> None:
     if precision not in VALUE_PLAIN:
         raise ValueError(
             f"precision must be 'fp32' or 'bf16', got {precision!r}"
         )
-    if not _launches_kernel(cnt_fit):
-        return VALUE_PLAIN[precision](dom_free, cnt_fit, dom_level,
-                                      total_demand, required_level,
-                                      preferred_level, valid, cap_scale,
-                                      fairness)
-    g, d = cnt_fit.shape
-    r = dom_free.shape[1]
-    if r < 1:
-        raise ValueError("value kernel needs at least one resource")
-    dev = cnt_fit.device
+
+
+def _launch_value(dom_free, sig_cnt, sig_idx, dom_level, demand, demand_idx,
+                  required_level, preferred_level, valid, cap_scale, fairness,
+                  precision: str):
+    """Check the operands of csrc/value_kernel.cu and launch it on CUDA
+    tensors; returns the [G, D] f32 value tensor."""
+    if sig_cnt.dim() != 2 or sig_idx.dim() != 2 or dom_free.dim() != 2 \
+            or demand.dim() != 2:
+        raise ValueError("value kernel: dom_free, sig_cnt, sig_idx and demand "
+                         "must be 2-D")
+    u, d = sig_cnt.shape
+    g, s = sig_idx.shape
+    t, r = demand.shape
+    if r < 1 or u < 1 or s < 1 or t < 1:
+        raise ValueError(
+            f"value kernel needs at least one resource, signature, "
+            f"signature per gang and demand row, got R={r}, U={u}, S={s}, "
+            f"T={t}"
+        )
+    if max(g * s, u * d, g * d, d * r, t * r) >= 2**31:
+        raise ValueError("value kernel: a dimension product is above 2**31")
+    dev = sig_cnt.device
     f32, i32 = torch.float32, torch.int32
     _check("dom_free", dom_free, f32, (d, r), dev)
-    _check("cnt_fit", cnt_fit, f32, (g, d), dev)
+    _check("sig_cnt", sig_cnt, f32, (u, d), dev)
+    _check("sig_idx", sig_idx, i32, (g, s), dev)
     _check("dom_level", dom_level, i32, (d,), dev)
-    _check("total_demand", total_demand, f32, (g, r), dev)
+    _check("demand", demand, f32, (t, r), dev)
+    _check("demand_idx", demand_idx, i32, (g,), dev)
     _check("required_level", required_level, i32, (g,), dev)
     _check("preferred_level", preferred_level, i32, (g,), dev)
     _check("valid", valid, torch.bool, (g,), dev)
@@ -315,10 +367,67 @@ def kernel_value(dom_free, cnt_fit, dom_level, total_demand, required_level,
     out = torch.empty((g, d), dtype=f32, device=dev)
     fn = getattr(load("value_kernel"), _VALUE_ENTRY[precision])
     fn.argtypes, fn.restype = _VALUE_ARGTYPES, ctypes.c_int
-    rc = fn(_ptr(dom_free), _ptr(cnt_fit), _ptr(dom_level), _ptr(total_demand),
-            _ptr(required_level), _ptr(preferred_level), _ptr(valid),
-            _ptr(cap_scale), _ptr(fairness), _ptr(out), g, d, r, _stream(dev))
+    rc = fn(_ptr(dom_free), _ptr(sig_cnt), _ptr(sig_idx), _ptr(dom_level),
+            _ptr(demand), _ptr(demand_idx), _ptr(required_level),
+            _ptr(preferred_level), _ptr(valid), _ptr(cap_scale),
+            _ptr(fairness), _ptr(out), g, d, r, u, s, t, _stream(dev))
     _raise_on(rc, f"value kernel ({precision})")
+    return out
+
+
+def kernel_value_sig(dom_free, sig_cnt, sig_idx, dom_level, demand,
+                     demand_idx, required_level, preferred_level, valid,
+                     cap_scale, fairness, *, precision: str = "fp32"):
+    """value[G, D] via csrc/value_kernel.cu in `precision` ("fp32" or
+    "bf16") from the per-signature fit counts, sig_cnt f32 [U, D] and
+    sig_idx i32 [G, S], and the demand table, demand f32 [T, R] and
+    demand_idx i32 [G] (gang g's demand is demand[demand_idx[g]]). The
+    kernel computes a demand row's score chain once per domain where
+    T <= 8, so pass the rows deduped (`engine.demand_table`). Every sig_idx
+    entry must lie in [0, U) and every demand_idx entry in [0, T) (the
+    caller checks: the kernel writes -1e9
+    over a row with an index outside, where the plain version raises).
+    The drop-in for `value_sig_plain` / `value_sig_plain_bf16`; fairness
+    is required. Plain version for CPU tensors; for CUDA tensors, the
+    kernel."""
+    _check_precision(precision)
+    if not _launches_kernel(sig_cnt):
+        return VALUE_SIG_PLAIN[precision](dom_free, sig_cnt, sig_idx,
+                                          dom_level, demand, demand_idx,
+                                          required_level, preferred_level,
+                                          valid, cap_scale, fairness)
+    out = _launch_value(dom_free, sig_cnt, sig_idx, dom_level, demand,
+                        demand_idx, required_level, preferred_level, valid,
+                        cap_scale, fairness, precision)
+    kernel_value_sig.launches[precision] += 1
+    return out
+
+
+kernel_value_sig.launches = dict.fromkeys(VALUE_PLAIN, 0)
+
+
+def kernel_value(dom_free, cnt_fit, dom_level, total_demand, required_level,
+                 preferred_level, valid, cap_scale, fairness, *,
+                 precision: str = "fp32"):
+    """value[G, D] via csrc/value_kernel.cu in `precision` ("fp32" or
+    "bf16") from a gathered cnt_fit [G, D]: the drop-in for `value_plain`
+    / `value_plain_bf16` (fairness is required), and the S = 1 case of
+    `kernel_value_sig` (sig_cnt = cnt_fit, sig_idx = arange(G), a demand
+    row a gang). Plain version for CPU tensors; for CUDA tensors, the
+    kernel."""
+    _check_precision(precision)
+    if not _launches_kernel(cnt_fit):
+        return VALUE_PLAIN[precision](dom_free, cnt_fit, dom_level,
+                                      total_demand, required_level,
+                                      preferred_level, valid, cap_scale,
+                                      fairness)
+    if cnt_fit.dim() != 2:
+        raise ValueError("value kernel: cnt_fit must be 2-D")
+    rows = torch.arange(cnt_fit.shape[0], dtype=torch.int32,
+                        device=cnt_fit.device)
+    out = _launch_value(dom_free, cnt_fit, rows[:, None], dom_level,
+                        total_demand, rows, required_level, preferred_level,
+                        valid, cap_scale, fairness, precision)
     kernel_value.launches[precision] += 1
     return out
 
@@ -430,10 +539,16 @@ kernel_commit_scan.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches since the last reset, by kernel name."""
+    """Kernel launches since the last reset, by kernel name. The value
+    kernel has two entries, each counted where it launches: `value_kernel`
+    (`_bf16`) through `kernel_value`, the S = 1 interface, and
+    `value_sig_kernel` (`_bf16`) through `kernel_value_sig`, the one the
+    engine calls."""
     return {
         "value_kernel": kernel_value.launches["fp32"],
         "value_kernel_bf16": kernel_value.launches["bf16"],
+        "value_sig_kernel": kernel_value_sig.launches["fp32"],
+        "value_sig_kernel_bf16": kernel_value_sig.launches["bf16"],
         "commit_topk": kernel_commit_topk.launches,
         "commit_scan": kernel_commit_scan.launches,
     }
@@ -442,6 +557,7 @@ def launch_counts() -> dict[str, int]:
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     kernel_value.launches = dict.fromkeys(VALUE_PLAIN, 0)
+    kernel_value_sig.launches = dict.fromkeys(VALUE_PLAIN, 0)
     kernel_commit_topk.launches = 0
     kernel_commit_scan.launches = 0
 
@@ -451,10 +567,14 @@ __all__ = [
     "device_commit_scan_plain",
     "kernel_commit_scan",
     "kernel_commit_topk",
+    "gather_min",
     "kernel_value",
+    "kernel_value_sig",
     "launch_counts",
     "reset_launches",
     "tie_jitter",
     "value_plain",
     "value_plain_bf16",
+    "value_sig_plain",
+    "value_sig_plain_bf16",
 ]
