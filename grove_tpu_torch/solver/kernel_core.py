@@ -42,8 +42,9 @@ unsupported shape is an error, never a silent fallback. Each wrapper
 counts the launches of its kernel (a plain int, incremented only where
 the kernel is launched): `kernel_value.launches` and
 `kernel_value_sig.launches` per precision, the others in
-`<wrapper>.launches`; `launch_counts()` reads them all by kernel name and
-`reset_launches()` sets them to 0.
+`<wrapper>.launches`; `launch_counts()` reads them all by kernel name,
+`reset_launches()` sets them to 0, and `add_launches()` adds the launches
+a replayed CUDA graph made without calling the wrappers.
 """
 
 from __future__ import annotations
@@ -554,6 +555,28 @@ def launch_counts() -> dict[str, int]:
     }
 
 
+def add_launches(counts: dict[str, int]) -> None:
+    """Add `counts` (kernel name -> launches, as `launch_counts` names
+    them) to the counters. A CUDA graph's replay launches the kernels it
+    captured without calling their wrappers, so whoever replays it adds
+    the captured counts here (solver/programs.py `FusedGraphs`)."""
+    for name, n in counts.items():
+        if name in ("value_kernel", "value_kernel_bf16"):
+            kernel_value.launches[_precision_of(name)] += n
+        elif name in ("value_sig_kernel", "value_sig_kernel_bf16"):
+            kernel_value_sig.launches[_precision_of(name)] += n
+        elif name == "commit_topk":
+            kernel_commit_topk.launches += n
+        elif name == "commit_scan":
+            kernel_commit_scan.launches += n
+        else:
+            raise KeyError(f"no kernel named {name!r}")
+
+
+def _precision_of(name: str) -> str:
+    return "bf16" if name.endswith("_bf16") else "fp32"
+
+
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     kernel_value.launches = dict.fromkeys(VALUE_PLAIN, 0)
@@ -563,6 +586,7 @@ def reset_launches() -> None:
 
 
 __all__ = [
+    "add_launches",
     "commit_topk_plain",
     "device_commit_scan_plain",
     "kernel_commit_scan",
