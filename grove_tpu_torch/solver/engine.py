@@ -48,17 +48,28 @@ Knobs keep the JAX package's names (`native_repair`, `pallas_core`,
 `device_commit`, `pallas_precision`, `state_cache`, `state_verify`,
 `fused`, `incremental`); see `resolve_kernel_tiers` for what the kernel
 knobs mean here. Not ported: the JAX engine's capability-miss fallback
-(`_guard_kernel`; a failed launch, capture or replay raises here), its
-metrics, tracer and decision-log hooks, and the hierarchical solve
-(ROADMAP.md).
+(`_guard_kernel`; a failed launch, capture or replay raises here) and its
+metrics, tracer and decision-log hooks (ROADMAP.md).
+
+HIERARCHICAL solve (`hierarchical=True`, solver/hierarchy.py): a coarse
+domain-level pass prunes and assigns, and exact solves run only inside
+the surviving domains, each through a persistent sub-engine (a
+PlacementEngine over the domain's sub-snapshot, on this engine's device,
+with its own resident state, incremental tier, CUDA graphs and CUDA
+stream). A wave of fine solves dispatches every domain through a thread
+pool (`hier_parallel_workers`), then collects in domain order, so its
+placements are bit-equal to solving the domains one at a time.
 """
 
 from __future__ import annotations
 
 import hashlib
 import math
+import os
 import time
+import weakref
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -70,6 +81,12 @@ from ..observability.explain import diagnose_unplaced
 from ..topology.encoding import TopologySnapshot
 from .fit import place_gang_in_domain, placement_score_for_nodes
 from . import programs
+from .hierarchy import (
+    DomainWork,
+    HierarchyState,
+    coarse_admissible,
+    coarse_assign,
+)
 from .kernel_core import tie_jitter  # noqa: F401  (re-exported)
 from .programs import (  # noqa: F401  (re-exported)
     commit_scan,
@@ -78,6 +95,11 @@ from .programs import (  # noqa: F401  (re-exported)
 from .problem import SolverGang
 from .result import GangPlacement, SolveResult
 from .serial import _place_one, gang_sort_key, stamp_fairness
+
+#: hierarchical solve: ceiling on the coarse pass's domain count -- the
+#: [G, nd] admissibility and assignment matrices must stay small; the
+#: prune level walks broader until under it
+_MAX_COARSE_DOMAINS = 4096
 
 _NEG = -1e9
 
@@ -202,6 +224,20 @@ def membership_matrix(gdom: torch.Tensor, num_domains: int) -> torch.Tensor:
         flat.index_add_(0, idx, torch.ones(idx.shape, dtype=torch.float32,
                                            device=gdom.device))
     return m
+
+
+def _weak_method(method):
+    """`method` (bound) as a callable that does not keep its object alive:
+    an engine and its graph cache then form no reference cycle, so a
+    dropped engine's graphs are freed at once, where it is dropped, and
+    never by a garbage collection that might run inside a capture."""
+    ref = weakref.WeakMethod(method)
+
+    def call(*args):
+        bound = ref()
+        if bound is not None:
+            bound(*args)
+    return call
 
 
 def resolve_device(device) -> torch.device:
@@ -369,10 +405,10 @@ class SolveDispatch:
     rebind()."""
 
     __slots__ = ("engine", "order", "free0", "token", "encode_seconds",
-                 "state_epoch", "path", "rows")
+                 "state_epoch", "path", "rows", "level")
 
     def __init__(self, engine, order, free0, token, encode_seconds,
-                 state_epoch=0, path=None, rows=0):
+                 state_epoch=0, path=None, rows=0, level=None):
         self.engine = engine
         self.order = order
         self.free0 = free0
@@ -380,18 +416,23 @@ class SolveDispatch:
         self.encode_seconds = encode_seconds
         self.state_epoch = state_epoch
         #: which device path produced the token (fused | split |
-        #: incremental | reused) and the dirty rows re-scored
+        #: incremental | reused | hierarchical) and the dirty rows
+        #: re-scored
         self.path = path
         self.rows = rows
+        #: hierarchical dispatches only: the coarse pruning level the
+        #: precomputed solve partitioned at (None on the flat paths)
+        self.level = level
 
     def cancel(self) -> None:
         """Drop the token's pinned host buffer and event. The device work
         already queued runs to its end (its writes to the resident state
         are content the epoch already counts); a cancelled dispatch is
-        never adopted."""
-        if self.token is not None:
+        never adopted. A hierarchical dispatch's token is its precomputed
+        solve, which is simply dropped."""
+        if isinstance(self.token, DeviceToken):
             self.token.release()
-            self.token = None
+        self.token = None
 
 
 class PlacementEngine:
@@ -413,6 +454,10 @@ class PlacementEngine:
         state_verify: bool = False,
         fused: bool = True,
         incremental: bool = True,
+        hierarchical: bool = False,
+        hier_prune_level: int | None = None,
+        hier_min_nodes: int = 0,
+        hier_parallel_workers: int | None = None,
     ):
         self.device = resolve_device(device)
         self.pallas_core, self.device_commit = resolve_kernel_tiers(
@@ -490,9 +535,40 @@ class PlacementEngine:
         }
         self._inc_rows_total = 0
         self._inc_reuse_hits = 0
-        #: the fused program's CUDA graphs, one per bucket key (on the card)
-        self._graphs = (programs.FusedGraphs(self.device)
+        #: the fused and incremental programs' CUDA graphs, one per bucket
+        #: key in a bounded LRU (on the card)
+        self._graphs = (programs.FusedGraphs(self.device,
+                                             _weak_method(self._graph_evicted))
                         if self.device.type == "cuda" else None)
+        #: the CUDA stream this engine's device work runs on; None = the
+        #: caller's current stream. A hierarchical parent gives each
+        #: sub-engine its own, so a wave's domains run side by side.
+        self._stream: torch.cuda.Stream | None = None
+        #: hierarchical two-level solve (solver/hierarchy.py). Off, or any
+        #: forced-flat trigger (an unconfined gang, a cluster below
+        #: hier_min_nodes, < 2 coarse domains) = the flat path above.
+        self.hierarchical = hierarchical
+        self.hier_prune_level = hier_prune_level
+        self.hier_min_nodes = hier_min_nodes
+        #: wave parallelism of the fine phase: within one attempt wave,
+        #: every surviving domain's dispatch half (host encode, staged
+        #: delta, device launch on the sub-engine's stream) runs through a
+        #: bounded thread pool, and collection commits in domain order, so
+        #: placements are bit-equal to the serial path. None = auto
+        #: (_auto_hier_workers); 0 = one domain at a time.
+        self.hier_parallel_workers = hier_parallel_workers
+        self._hier_pool: ThreadPoolExecutor | None = None
+        self._hier_pool_size = 0
+        #: what sub-engines inherit: the normalized incremental request and
+        #: kernel tiers of this engine
+        self._hier_incremental = self.incremental
+        self._hier_pallas_core = self.pallas_core
+        self._hier_device_commit = self.device_commit
+        self._hier: HierarchyState | None = None
+        #: rows the last _sync_free observed changed (None = a full upload
+        #: never diffed: unknown scope), fanned out to the hierarchy's
+        #: domain shards so unchanged domains stay O(1)
+        self._sync_changed: np.ndarray | None = None
 
     # -- device-resident cluster state ---------------------------------------
     def note_free_rows(self, rows) -> None:
@@ -522,6 +598,25 @@ class PlacementEngine:
         self._hints = False
         self._staged = None
         self._inc = None
+        # the hierarchy's shards (sub-engines, their device state, caches
+        # and graphs, the domain-reuse memos) are rebuilt lazily: an
+        # invalidate means "trust nothing resident"
+        self._hier = None
+
+    def _graph_evicted(self, _key, entry) -> None:
+        """A captured graph is being dropped from the LRU: an incremental
+        cache that points into its outputs must not outlive it, so drop
+        that cache (the next solve runs full). The cache object is shared
+        with the dispatch token that armed it, so a pending token sees the
+        drop too."""
+        inc = self._inc
+        if inc is None or inc.value_dev is None:
+            return
+        outs = {t.untyped_storage().data_ptr() for t in entry.outs[1:]}
+        if ({inc.value_dev.untyped_storage().data_ptr(),
+             inc.td_dev.untyped_storage().data_ptr()} & outs):
+            inc.value_dev = inc.td_dev = None
+            self._inc = None
 
     def rebind(self, snapshot: TopologySnapshot) -> bool:
         """Adopt a freshly-encoded snapshot WITHOUT rebuilding the engine
@@ -551,6 +646,11 @@ class PlacementEngine:
         self._inc = None
         if changed.size:
             self.note_free_rows(changed.tolist())
+        if self._hier is not None:
+            # shards re-slice their schedulable bits and rebind their
+            # sub-engines (the flips ride each shard's delta path); the
+            # domain-reuse memos drop: the usable node set moved
+            self._hier.rebind(snapshot)
         return True
 
     def _masked_free(self, free: np.ndarray) -> np.ndarray:
@@ -599,6 +699,8 @@ class PlacementEngine:
         st.mirror = masked if self.state_cache else None
         st.epoch += 1
         st.full_uploads += 1
+        #: a full upload is an unknown row scope for the hierarchy fan-out
+        self._sync_changed = None
         # staged rows are content the full matrix already carries
         self._staged = None
         return st.epoch
@@ -638,10 +740,16 @@ class PlacementEngine:
             masked = self._masked_free(free)
             changed = np.flatnonzero((st.mirror != masked).any(axis=1))
             new_rows = masked[changed]
+        # the observed changed rows, for the hierarchy's shard fan-out
+        self._sync_changed = changed
         if changed.size == 0:
             st.hits += 1
         elif changed.size > self._delta_rows_max:
             self._upload_full(free, masked)
+            # the bulk path still OBSERVED exactly these rows: keep the
+            # precise scope (the None _upload_full stamps means never
+            # diffed, which this was not)
+            self._sync_changed = changed
         elif defer and self.fused:
             staged = self._staged
             if staged is None:
@@ -902,9 +1010,14 @@ class PlacementEngine:
         if not solvable:
             return None
         order = sorted(solvable, key=gang_sort_key)
-        epoch = self._sync_free(free, defer=self.fused)
-        enc = self._encode_arrays(order)
-        token = self._device_begin(enc)
+        hier_level = self._hier_plan(order)
+        if hier_level is not None:
+            return self._hier_dispatch(order, free, hier_level, t0)
+        # tracer span "engine.fused" (dispatch=True): item 6a
+        with torch.cuda.stream(self._stream):
+            epoch = self._sync_free(free, defer=self.fused)
+            enc = self._encode_arrays(order)
+            token = self._device_begin(enc)
         keep_free = not self.state_cache or self.state_verify
         return SolveDispatch(
             engine=self,
@@ -1008,6 +1121,446 @@ class PlacementEngine:
         k = packed.shape[1] // 2
         return packed[:, :k], packed[:, k:].astype(np.int32), order
 
+    # -- hierarchical two-level solve (solver/hierarchy.py) ------------------
+    def _hier_plan(self, order: list[SolverGang]) -> int | None:
+        """The prune level this backlog solves hierarchically at, or None
+        for the flat path. Forced-flat triggers: the knob is off; the
+        cluster is below hier_min_nodes (the flat tensor is cheap there);
+        the topology has no levels; any gang is UNCONFINED (required pack
+        level broader than every prunable level: it may legally span
+        coarse domains, which a partitioned solve could not contend); or
+        the chosen level has fewer than two domains. A pure function of
+        (order, knobs, static snapshot), so a dispatch and its consuming
+        solve always agree."""
+        if not self.hierarchical or not order:
+            return None
+        snap = self.snapshot
+        if snap.num_nodes < self.hier_min_nodes or snap.num_levels == 0:
+            return None
+        req_min = min(g.required_level for g in order)
+        if req_min < 0:
+            return None
+        level = req_min
+        if self.hier_prune_level is not None:
+            level = min(self.hier_prune_level, req_min)
+        # the coarse pass materializes [G, nd]: walk broader while the
+        # level is too fine-grained for that to stay small
+        while level > 0 and int(snap.num_domains[level]) > _MAX_COARSE_DOMAINS:
+            level -= 1
+        if int(snap.num_domains[level]) < 2:
+            return None
+        return level
+
+    def _sub_device(self, dom: int) -> torch.device:
+        """The device a domain shard's sub-engine runs on: this engine's
+        (the mesh engine of item 7 will spread them)."""
+        return self.device
+
+    def _make_sub_engine(self, shard) -> "PlacementEngine":
+        eng = PlacementEngine(
+            shard.snapshot,
+            device=self._sub_device(shard.dom),
+            top_k=self.top_k,
+            commit_chunk=self.commit_chunk,
+            bucket_min=self.bucket_min,
+            pallas_core=self._hier_pallas_core,
+            device_commit=self._hier_device_commit,
+            pallas_precision=self.pallas_precision,
+            native_repair=self.native_repair,
+            state_cache=self.state_cache,
+            state_verify=self.state_verify,
+            fused=self.fused,
+            incremental=self._hier_incremental,
+        )
+        if eng.device.type == "cuda":
+            # its own stream: a wave's dispatches run side by side, and its
+            # graphs replay one after another on it (their shared pool
+            # relies on that). Past 32 sub-engines PyTorch's pool hands
+            # the same stream to several, which only serializes their
+            # work. Everything the sub-engine allocates on the card is
+            # allocated on this stream, also when the main thread runs its
+            # collect half (solve() runs under it), so no tensor is used
+            # on one stream and freed on another: none needs record_stream.
+            eng._stream = torch.cuda.Stream(eng.device)
+        # (the JAX engine also turns off the sub-engine's decision ring:
+        # item 6a)
+        return eng
+
+    def _domain_prepare(self, hs, dom: int, members,
+                        free: np.ndarray) -> DomainWork:
+        """Main-thread half of one domain's fine solve: shard resolution,
+        the free-row slice, the domain-reuse memo probe (an identical gang
+        set -- by object identity and fairness stamp -- against
+        bit-identical free rows replays the previous placements), and the
+        pending-row custody handoff. Runs serially in domain order, so
+        shard construction and memo probes never race."""
+        shard = hs.shard(dom)
+        sub_free = np.ascontiguousarray(free[shard.idx])
+        gangs = [g for _i, g in members]
+        sig = (
+            tuple(id(g) for g in gangs),
+            tuple(g.fairness for g in gangs),
+        )
+        work = DomainWork(dom, members, shard, gangs, sig, sub_free)
+        if (
+            # the memo is an incrementality tier: configured off, every
+            # repeat pays the full fine solve
+            self._hier_incremental
+            and shard.last_placed is not None
+            and shard.last_sig == sig
+            and shard.last_pre is not None
+            and shard.last_pre.shape == sub_free.shape
+            and np.array_equal(shard.last_pre, sub_free)
+        ):
+            work.memo = True
+            return work
+        if shard.engine is None:
+            shard.engine = self._make_sub_engine(shard)
+        pend, shard.pending_rows = shard.pending_rows, set()
+        # the parent sync's custody chain scopes the sub diff: the consumed
+        # pending rows (possibly none: the sub-engine declared its own
+        # commits after its last repair), or None = unknown scope
+        shard.engine.note_free_rows(None if pend is None else sorted(pend))
+        work.pre = sub_free.copy()
+        return work
+
+    def _domain_dispatch(self, work: DomainWork, level: int) -> None:
+        """Async half of one domain's fine solve: gang proxies, host
+        encode, staged-delta sync and the device launch on the sub-engine's
+        stream, through its own dispatch(). Thread-pool safe: it touches
+        only shard-local state (the domain's proxies, mask slices,
+        sub-engine, stream and graphs); the parent `free` is never read
+        here (prepare sliced it), and domains partition node rows."""
+        t0 = time.perf_counter()
+        work.proxies = [work.shard.proxy(g, level) for g in work.gangs]
+        work.handle = work.shard.engine.dispatch(work.proxies,
+                                                 free=work.sub_free)
+        work.encode_seconds = time.perf_counter() - t0
+
+    def _domain_collect(self, work: DomainWork, free: np.ndarray,
+                        sub_stats: dict):
+        """Collect half of one domain's fine solve: adopt the in-flight
+        device phase (wait for its event), run the exact host repair, and
+        commit the domain's free rows, or replay the memo. Runs in domain
+        order on the main thread: the `free` commits and the parent's
+        counter mirroring are the wave's only shared writes. Returns
+        ({name: global GangPlacement}, [failed (i, gang)])."""
+        shard = work.shard
+        idx = shard.idx
+        if work.memo:
+            free[idx] = shard.last_post
+            sub_stats["hier_domain_reuse"] += 1
+            return {p.gang.name: p for p in shard.last_placed}, []
+        res = shard.engine.solve(work.proxies, free=work.sub_free,
+                                 dispatch=work.handle)
+        # tracer point "engine.fine_solve" with the sub-solve's split: 6a
+        free[idx] = work.sub_free
+        placed_here: dict[str, GangPlacement] = {}
+        failed = []
+        for i, g in work.members:
+            subp = res.placed.get(g.name)
+            if subp is None:
+                failed.append((i, g))
+                continue
+            gidx = idx[subp.node_indices]
+            placed_here[g.name] = GangPlacement(
+                gang=g,
+                pod_to_node=subp.pod_to_node,  # node names are global
+                node_indices=gidx,
+                placement_score=placement_score_for_nodes(self.snapshot,
+                                                          gidx),
+            )
+        shard.last_sig = work.sig
+        shard.last_pre = work.pre
+        shard.last_post = work.sub_free.copy()
+        # the memo replays only COMPLETE outcomes: a failed gang re-enters
+        # the alternate walk, which a replay cannot reproduce
+        shard.last_placed = list(placed_here.values()) if not failed else None
+        # mirror the sub-engine's launch accounting into the parent's, so
+        # the per-kind story shows the shard-local incremental tier
+        sub_stats["hier_fine_solves"] += 1
+        for kind, total in shard.engine._dispatches.items():
+            self._count_dispatch_kind(kind,
+                                      total - shard.disp_seen.get(kind, 0))
+            shard.disp_seen[kind] = total
+        rows_total = shard.engine._inc_rows_total
+        if rows_total > shard.inc_rows_seen:
+            self._count_inc_rows(rows_total - shard.inc_rows_seen)
+            shard.inc_rows_seen = rows_total
+        hits = shard.engine._inc_reuse_hits
+        if hits > shard.reuse_seen:
+            self._inc_reuse_hits += hits - shard.reuse_seen
+            sub_stats["hier_sub_reused"] += hits - shard.reuse_seen
+            shard.reuse_seen = hits
+        if res.stats.get("incremental"):
+            sub_stats["hier_sub_incremental"] += 1
+            sub_stats["incremental_rows"] += res.stats.get(
+                "incremental_rows", 0.0)
+        sub_stats["hier_repair_fallbacks"] += res.stats.get("fallbacks", 0.0)
+        return placed_here, failed
+
+    def _solve_domain(self, hs, dom: int, members, free: np.ndarray,
+                      sub_stats: dict):
+        """Serial fine solve of one coarse domain (the workers = 0 path and
+        single-domain waves): prepare, dispatch, collect back to back."""
+        work = self._domain_prepare(hs, dom, members, free)
+        if not work.memo:
+            self._domain_dispatch(work, hs.level)
+        return self._domain_collect(work, free, sub_stats)
+
+    def _auto_hier_workers(self) -> int:
+        """hier_parallel_workers=None: enough host threads to keep the
+        encode pipeline ahead of the collect loop, bounded -- the dispatch
+        half is host numpy and an async launch, so past the core count
+        more workers only contend."""
+        return min(8, os.cpu_count() or 1)
+
+    def _wave_workers(self) -> int:
+        """Resolved wave-parallelism width (0 = serial fine solves)."""
+        w = self.hier_parallel_workers
+        if w is None:
+            return self._auto_hier_workers()
+        return max(0, int(w))
+
+    def _hier_pool_get(self, workers: int) -> ThreadPoolExecutor:
+        """The engine's bounded dispatch pool, grown (never shrunk) to the
+        resolved width; threads start lazily, so an engine whose waves
+        never run in parallel creates none."""
+        if self._hier_pool is None or self._hier_pool_size < workers:
+            if self._hier_pool is not None:
+                self._hier_pool.shutdown(wait=False)
+            self._hier_pool = ThreadPoolExecutor(
+                max_workers=workers, thread_name_prefix="grove-hier-wave")
+            self._hier_pool_size = workers
+        return self._hier_pool
+
+    def _run_wave(self, hs, groups: dict, free: np.ndarray, sub_stats: dict,
+                  tried: dict, placed_map: dict, fine_walls: list) -> list:
+        """One attempt wave of fine solves: DISPATCH-ALL (each domain's
+        encode, staged-delta sync and launch on its sub-engine's stream,
+        through the pool), then COLLECT-IN-ORDER (wait for each domain's
+        event, exact repair, free-row commit) in sorted domain order. The
+        dispatch halves touch disjoint free slices and shard-local state
+        only, so placements are bit-equal to solving the domains one at a
+        time (workers = 0). Returns the wave's failed (i, gang) pairs.
+        (Tracer span "engine.hier_wave" and the wave metrics: item 6a.)"""
+        doms = sorted(groups)
+        workers = min(self._wave_workers(), len(doms))
+        parallel = workers >= 1 and len(doms) > 1
+        failures: list = []
+        if parallel:
+            works = [self._domain_prepare(hs, dom, groups[dom], free)
+                     for dom in doms]
+            pool = self._hier_pool_get(workers)
+            for w in works:
+                if not w.memo:
+                    w.fut = pool.submit(self._domain_dispatch, w, hs.level)
+            try:
+                for w in works:
+                    if w.fut is not None:
+                        w.fut.result()  # re-raise dispatch errors
+                    t0 = time.perf_counter()
+                    placed_here, failed = self._domain_collect(w, free,
+                                                               sub_stats)
+                    fine_walls.append(time.perf_counter() - t0
+                                      + w.encode_seconds)
+                    for i, _g in w.members:
+                        tried[i].add(w.dom)
+                    placed_map.update(placed_here)
+                    failures.extend(failed)
+            except BaseException:
+                # never unwind while sibling dispatch halves still run: a
+                # caller retrying solve() would re-enter the same shards
+                # concurrently with them. Cancel what never started, wait
+                # out what did, then propagate.
+                for w in works:
+                    if w.fut is not None:
+                        w.fut.cancel()
+                for w in works:
+                    if w.fut is not None and not w.fut.cancelled():
+                        try:
+                            w.fut.exception()
+                        except BaseException:
+                            pass  # the error surfacing below is the first
+                raise
+        else:
+            for dom in doms:
+                t0 = time.perf_counter()
+                placed_here, failed = self._solve_domain(
+                    hs, dom, groups[dom], free, sub_stats)
+                fine_walls.append(time.perf_counter() - t0)
+                for i, _g in groups[dom]:
+                    tried[i].add(dom)
+                placed_map.update(placed_here)
+                failures.extend(failed)
+        sub_stats["hier_waves"] += 1
+        sub_stats["hier_wave_width"] = max(sub_stats["hier_wave_width"],
+                                           float(len(doms)))
+        # max-merged like the width: a trailing single-domain retry wave
+        # must not erase that earlier waves ran in parallel
+        sub_stats["hier_wave_workers"] = max(
+            sub_stats["hier_wave_workers"], float(workers if parallel else 0))
+        return failures
+
+    def _hier_run(self, order: list[SolverGang], free: np.ndarray,
+                  result: SolveResult, level: int):
+        """The two-level solve body (solve() and dispatch() both drive it):
+        coarse admissibility and assignment over aggregates, fine exact
+        solves per surviving domain, the alternate walk for fine failures,
+        and the serial full-scan exactness net. Mutates `free` exactly like
+        the flat repair. Returns (placed_map, fallbacks)."""
+        hs = self._hier
+        if hs is None or hs.snapshot is not self.snapshot or hs.level != level:
+            hs = self._hier = HierarchyState(self.snapshot, level)
+        else:
+            hs.push_rows(self._sync_changed if self.state_cache else None)
+        t_c = time.perf_counter()
+        fm = self._masked_free(free)
+        admissible, dom_free, cstats, cls_ids = coarse_admissible(
+            order, self.snapshot, fm, level)
+        choices = coarse_assign(order, admissible, dom_free, self._cap_scale,
+                                top_kc=min(4, hs.nd), class_ids=cls_ids)
+        hs.last_pruned = cstats["pruned"]
+        hs.last_admissible = cstats["admissible"]
+        result.stats["hier_coarse_seconds"] = time.perf_counter() - t_c
+        sub_stats = {
+            "hier_fine_solves": 0, "hier_domain_reuse": 0,
+            "hier_sub_incremental": 0, "hier_sub_reused": 0,
+            "incremental_rows": 0.0, "hier_repair_fallbacks": 0.0,
+            "hier_waves": 0, "hier_wave_width": 0.0,
+            "hier_wave_workers": 0.0, "hier_wave_devices": 0.0,
+        }
+        fine_walls: list[float] = []
+        t_fine = time.perf_counter()
+        placed_map: dict[str, GangPlacement] = {}
+        pending = list(enumerate(order))
+        tried: dict[int, set] = {i: set() for i, _g in pending}
+        round_choices = dict(enumerate(choices))
+        for rnd in range(3):
+            if not pending:
+                break
+            if rnd > 0:
+                # RE-AGGREGATE for the still-failing gangs against the live
+                # residual free, excluding the domains each already failed
+                # in (the flat repair's serial net gets the same live view)
+                sub = [g for _i, g in pending]
+                adm_r, dom_free_r, _, _cls = coarse_admissible(
+                    sub, self.snapshot, self._masked_free(free), level)
+                for row, (i, _g) in enumerate(pending):
+                    if tried[i]:
+                        adm_r[row, sorted(tried[i])] = False
+                # no class_ids: the tried masks just edited the rows
+                ch = coarse_assign(sub, adm_r, dom_free_r, self._cap_scale,
+                                   top_kc=min(4, hs.nd))
+                round_choices = {pending[row][0]: ch[row]
+                                 for row in range(len(pending))}
+            attempt = 0
+            while pending:
+                groups: dict[int, list] = {}
+                leftover = []
+                for i, g in pending:
+                    alts = round_choices.get(i) or []
+                    if attempt < len(alts):
+                        groups.setdefault(alts[attempt], []).append((i, g))
+                    else:
+                        leftover.append((i, g))
+                if not groups:
+                    pending = leftover
+                    break
+                failures = self._run_wave(hs, groups, free, sub_stats, tried,
+                                          placed_map, fine_walls)
+                pending = sorted(leftover + failures)
+                attempt += 1
+        result.stats["hier_fine_seconds"] = time.perf_counter() - t_fine
+        # exactness net: gangs inadmissible everywhere or failed in every
+        # surviving domain take the flat repair's serial scan, restricted
+        # to the gang's admissible domains' nodes when any exist (free only
+        # decreases during a solve), else over the whole cluster, as flat
+        t_net = time.perf_counter()
+        fallbacks = 0
+        for i, gang in pending:
+            fallbacks += 1
+            net_nodes = self._sched_nodes
+            adm_row = admissible[i]
+            if adm_row.any():
+                net_nodes = net_nodes[adm_row[hs.dom_of[net_nodes]]]
+            placed = _place_one(gang, self.snapshot, free, net_nodes)
+            if placed is None and net_nodes is not self._sched_nodes:
+                placed = _place_one(gang, self.snapshot, free,
+                                    self._sched_nodes)
+            if placed is not None:
+                placed_map[gang.name] = placed
+        result.stats["hier_net_seconds"] = time.perf_counter() - t_net
+        if fine_walls:
+            # per-domain fine walls (dispatch half + collect half; memo
+            # replays near zero); in a parallel wave the sum exceeds the
+            # fine phase's wall by the overlap won
+            walls = sorted(fine_walls)
+            result.stats["hier_fine_wall_min"] = walls[0]
+            result.stats["hier_fine_wall_med"] = walls[len(walls) // 2]
+            result.stats["hier_fine_wall_max"] = walls[-1]
+        result.stats.update(sub_stats)
+        result.stats["hierarchical"] = 1.0
+        result.stats["hier_level"] = float(level)
+        result.stats["hier_domains"] = float(hs.nd)
+        result.stats["hier_pruned_pairs"] = float(hs.last_pruned)
+        if sub_stats["hier_sub_incremental"]:
+            result.stats["incremental"] = 1.0
+        return placed_map, fallbacks
+
+    def _hier_dispatch(self, order, free, level, t0) -> SolveDispatch:
+        """Hierarchical dispatch: the two-level solve is mostly host work
+        with many small sub-launches, so it runs now, against a copy of
+        `free`, and the handle carries the placements and the free-row
+        delta. Adoption (the same order by identity, the same free content
+        by the epoch or content guard) replays the delta; any staleness
+        solves afresh, as on the flat path."""
+        epoch = self._sync_free(free) if self.state_cache else 0
+        free_h = free.copy()
+        stub = SolveResult()
+        placed_map, fallbacks = self._hier_run(order, free_h, stub, level)
+        rows = np.flatnonzero((free_h != free).any(axis=1))
+        keep_free = not self.state_cache or self.state_verify
+        return SolveDispatch(
+            engine=self,
+            order=order,
+            free0=self._masked_free(free) if keep_free else None,
+            token=("hier", placed_map, fallbacks, rows, free_h[rows],
+                   dict(stub.stats)),
+            encode_seconds=time.perf_counter() - t0,
+            state_epoch=epoch,
+            path="hierarchical",
+            rows=int(rows.size),
+            level=level,
+        )
+
+    def _hier_middle(self, order, free, dispatch, result, level):
+        """solve()'s middle phase on the hierarchical path: adopt a
+        hierarchical dispatch (replay its recorded free-row delta: the
+        epoch guard proved the content basis unchanged) or run the
+        two-level solve. The parent's sync keeps its mirror and epoch
+        current (the adoption guard and the shards' changed-row custody
+        chain) and its own resident state warm for a later flat backlog.
+        Returns (placed_map, fallbacks)."""
+        epoch = self._sync_free(free) if self.state_cache else 0
+        if (
+            dispatch is not None
+            and dispatch.engine is self
+            and dispatch.path == "hierarchical"
+            and dispatch.token is not None
+            and len(dispatch.order) == len(order)
+            and all(a is b for a, b in zip(dispatch.order, order))
+            and self._dispatch_current(dispatch, free, epoch)
+        ):
+            _tag, placed_map, fallbacks, rows, vals, stats = dispatch.token
+            dispatch.token = None
+            free[rows] = vals
+            result.stats.update(stats)
+            result.stats["encode_seconds"] = dispatch.encode_seconds
+            result.stats["dispatch_overlap"] = 1.0
+            return placed_map, fallbacks
+        return self._hier_run(order, free, result, level)
+
     # -- the solve -----------------------------------------------------------
     def solve(
         self,
@@ -1037,6 +1590,24 @@ class PlacementEngine:
             result.wall_seconds = time.perf_counter() - t0
             return result
         order = sorted(solvable, key=gang_sort_key)
+        # Hierarchical two-level path (solver/hierarchy.py), then the same
+        # shared tail as the flat path. _hier_plan is a pure function of
+        # (order, knobs, static snapshot), so a dispatch and its consuming
+        # solve always take the same path. (Tracer span
+        # "engine.hierarchical" and its causal token: item 6a.)
+        hier_level = self._hier_plan(order)
+        if hier_level is not None:
+            placed_map, fallbacks = self._hier_middle(order, free, dispatch,
+                                                      result, hier_level)
+            return self._finish_solve(result, order, placed_map, fallbacks,
+                                      free, t0)
+        with torch.cuda.stream(self._stream):
+            return self._solve_flat(order, free, dispatch, result, t0)
+
+    def _solve_flat(self, order, free, dispatch, result, t0) -> SolveResult:
+        """The flat solve's middle and tail: sync, adopt `dispatch` or run
+        the device phase, repair. (Tracer spans "engine.fused" /
+        "engine.encode", "engine.device", "engine.repair": item 6a.)"""
         # cache on: sync BEFORE the adoption decision, so the O(1) epoch
         # compare equals a content compare and the fresh path reuses the
         # synced state. Cache off: the guard compares content, and the
@@ -1046,6 +1617,7 @@ class PlacementEngine:
         if (
             dispatch is not None
             and dispatch.engine is self
+            and dispatch.path != "hierarchical"
             and dispatch.token is not None
             and len(dispatch.order) == len(order)
             and all(a is b for a, b in zip(dispatch.order, order))
@@ -1085,9 +1657,10 @@ class PlacementEngine:
                                   t0)
 
     def _finish_solve(self, result, order, placed_map, fallbacks, free, t0):
-        """Declare the rows the repair committed, and attribute every gang
-        placed or unplaced (with the memoized structured diagnosis against
-        the residual free matrix)."""
+        """Shared solve tail of the flat and hierarchical paths: declare
+        the rows the repair committed, and attribute every gang placed or
+        unplaced (with the memoized structured diagnosis against the
+        residual free matrix). (Metrics and the decision log: item 6a.)"""
         if self.state_cache and placed_map:
             # the repair committed demand into `free` in place: the engine
             # declares its OWN mutations, so the next sync diffs only the
@@ -1354,16 +1927,25 @@ class PlacementEngine:
         )
         statics = self._ensure_statics()
         m_padd = _bucket(len(d_mask_rows), minimum=1)
-        if m_padd == 1:
-            masks = statics.ones
-        else:
+        d_masks = None
+        if m_padd > 1:
             d_masks = np.zeros((m_padd, self.snapshot.num_nodes), np.float32)
             d_masks[: len(d_mask_rows)] = elig_masks[d_mask_rows]
-            masks = self._h2d(d_masks)
-        packed, value_new, td_new = programs.inc_score(
-            self._state.dev, inc.value_dev, inc.td_dev, statics, masks,
-            self._h2d(io), lay, **self._score_kw(),
-        )
+        kw = self._score_kw()
+        if self._graphs is not None:
+            # K6 as the graph of its bucket key: the io buffer and mask
+            # table content-loaded, the cache copied into static inputs
+            key = ("inc", lay, inc.g_pad, m_padd, kw["tier"],
+                   kw["device_commit"])
+            packed, value_new, td_new = self._graphs.run(
+                key, self._state.dev, statics, io, d_masks, lay,
+                cache=(inc.value_dev, inc.td_dev), **kw)
+        else:
+            masks = statics.ones if d_masks is None else self._h2d(d_masks)
+            packed, value_new, td_new = programs.inc_score(
+                self._state.dev, inc.value_dev, inc.td_dev, statics, masks,
+                self._h2d(io), lay, **kw,
+            )
         self._count_dispatch_kind("incremental")
         self._count_kernel_tiers()
         self._count_inc_rows(len(dirty))
@@ -1445,12 +2027,15 @@ class PlacementEngine:
         """Public introspection: engine type, problem shape, whether the
         static arrays are on the device, and the device free state's
         epoch/upload/hit accounting with the launches by path, in the JAX
-        engine's keys and tier vocabulary; `fused_graphs` counts the
-        fused program's captured graphs, their replays (those that carried
-        a delta block apart) and the kernel launches the replays made (on
-        the card)."""
+        engine's keys and tier vocabulary; `fused_graphs` counts the fused
+        and incremental programs' graphs (the keys held against the LRU's
+        bound, captures, evictions), their replays (those that carried a
+        delta block, and the incremental ones, apart) and the kernel
+        launches the replays made (on the card); `hierarchical` the
+        two-level solve's state."""
         st = self._state
         graphs = self._graphs
+        hs = self._hier
         return {
             "type": type(self).__name__,
             "num_nodes": self.snapshot.num_nodes,
@@ -1489,10 +2074,27 @@ class PlacementEngine:
                 ),
             },
             "fused_graphs": {
+                "bound": programs.GRAPH_KEYS,
+                "keys": 0 if graphs is None else len(graphs),
                 "captured": 0 if graphs is None else graphs.captures,
+                "evictions": 0 if graphs is None else graphs.evictions,
                 "replays": 0 if graphs is None else graphs.replays,
                 "delta_replays": 0 if graphs is None else graphs.delta_replays,
+                "inc_replays": 0 if graphs is None else graphs.inc_replays,
                 "launches": {} if graphs is None else dict(graphs.launches),
+            },
+            # the hierarchical solve: the coarse pass's pruning and the
+            # shard population (the sub-engines' launches are mirrored
+            # into the dispatches above)
+            "hierarchical": {
+                "enabled": self.hierarchical,
+                "wave_workers": self._wave_workers(),
+                "prune_level": None if hs is None else hs.level,
+                "coarse_domains": None if hs is None else hs.nd,
+                "shards_built": 0 if hs is None else len(hs.shards),
+                "last_pruned_pairs": 0 if hs is None else hs.last_pruned,
+                "last_admissible_pairs": (0 if hs is None
+                                          else hs.last_admissible),
             },
         }
 

@@ -39,17 +39,21 @@ A wrapper takes its plain version only for tensors that lie on the CPU --
 the CPU tests, the counterpart of JAX's interpret mode. For a CUDA tensor
 it launches the kernel or raises: a failed build, a refused launch or an
 unsupported shape is an error, never a silent fallback. Each wrapper
-counts the launches of its kernel (a plain int, incremented only where
-the kernel is launched): `kernel_value.launches` and
-`kernel_value_sig.launches` per precision, the others in
-`<wrapper>.launches`; `launch_counts()` reads them all by kernel name,
-`reset_launches()` sets them to 0, and `add_launches()` adds the launches
-a replayed CUDA graph made without calling the wrappers.
+counts the launches of its kernel, only where it launches it, by
+`count_launch` into one dict keyed by kernel name under one lock, so the
+threads of a hierarchical wave lose no count; `launch_counts()` reads it,
+`reset_launches()` sets it to 0, and `add_launches()` adds the launches a
+replayed CUDA graph made without calling the wrappers. A launch made
+while the calling thread captures a graph (inside `capture_counts()`)
+runs nothing: it goes to that capture's own counts instead, which the
+graph's owner adds per replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 
 import torch
 
@@ -400,11 +404,9 @@ def kernel_value_sig(dom_free, sig_cnt, sig_idx, dom_level, demand,
     out = _launch_value(dom_free, sig_cnt, sig_idx, dom_level, demand,
                         demand_idx, required_level, preferred_level, valid,
                         cap_scale, fairness, precision)
-    kernel_value_sig.launches[precision] += 1
+    count_launch("value_sig_kernel" + _SUFFIX[precision])
     return out
 
-
-kernel_value_sig.launches = dict.fromkeys(VALUE_PLAIN, 0)
 
 
 def kernel_value(dom_free, cnt_fit, dom_level, total_demand, required_level,
@@ -429,11 +431,9 @@ def kernel_value(dom_free, cnt_fit, dom_level, total_demand, required_level,
     out = _launch_value(dom_free, cnt_fit, rows[:, None], dom_level,
                         total_demand, rows, required_level, preferred_level,
                         valid, cap_scale, fairness, precision)
-    kernel_value.launches[precision] += 1
+    count_launch("value_kernel" + _SUFFIX[precision])
     return out
 
-
-kernel_value.launches = dict.fromkeys(VALUE_PLAIN, 0)
 
 
 def kernel_commit_topk(value, dom_free, anc_ids, total_demand,
@@ -485,11 +485,9 @@ def kernel_commit_topk(value, dom_free, anc_ids, total_demand,
             _ptr(top_val), _ptr(top_dom), g, d, r, l1, top_k, chunk,
             _stream(dev))
     _raise_on(rc, "commit top-k kernel")
-    kernel_commit_topk.launches += 1
+    count_launch("commit_topk")
     return top_val, top_dom
 
-
-kernel_commit_topk.launches = 0
 
 
 def kernel_commit_scan(top_val, top_dom, dom_free, anc_ids, total_demand):
@@ -532,11 +530,19 @@ def kernel_commit_scan(top_val, top_dom, dom_free, anc_ids, total_demand):
             _ptr(total_demand), _ptr(out_val), _ptr(out_dom),
             g, k, d, r, l1, _stream(dev))
     _raise_on(rc, "commit-scan kernel")
-    kernel_commit_scan.launches += 1
+    count_launch("commit_scan")
     return out_val, out_dom
 
 
-kernel_commit_scan.launches = 0
+
+#: launches since the last reset by kernel name, the counters' one lock,
+#: and the counts of the capture (if any) that the calling thread runs
+_NAMES = ("value_kernel", "value_kernel_bf16", "value_sig_kernel",
+          "value_sig_kernel_bf16", "commit_topk", "commit_scan")
+_COUNTS = dict.fromkeys(_NAMES, 0)
+_COUNT_LOCK = threading.Lock()
+_CAPTURING = threading.local()
+_SUFFIX = {"fp32": "", "bf16": "_bf16"}
 
 
 def launch_counts() -> dict[str, int]:
@@ -545,48 +551,62 @@ def launch_counts() -> dict[str, int]:
     (`_bf16`) through `kernel_value`, the S = 1 interface, and
     `value_sig_kernel` (`_bf16`) through `kernel_value_sig`, the one the
     engine calls."""
-    return {
-        "value_kernel": kernel_value.launches["fp32"],
-        "value_kernel_bf16": kernel_value.launches["bf16"],
-        "value_sig_kernel": kernel_value_sig.launches["fp32"],
-        "value_sig_kernel_bf16": kernel_value_sig.launches["bf16"],
-        "commit_topk": kernel_commit_topk.launches,
-        "commit_scan": kernel_commit_scan.launches,
-    }
+    with _COUNT_LOCK:
+        return dict(_COUNTS)
+
+
+def count_launch(name: str, n: int = 1) -> None:
+    """Add `n` launches of kernel `name` (as `launch_counts` names it).
+    Inside `capture_counts()` on this thread they go to the capture's
+    counts only: a capture launches nothing. Otherwise to the counters,
+    under one lock (a read-modify-write that threads would lose)."""
+    add_launches({name: n})
+
+
+@contextlib.contextmanager
+def capture_counts():
+    """Within the block, the wrappers' launches on THIS thread are counted
+    into the yielded dict (kernel name -> launches) and not into the
+    counters: the launches one CUDA graph capture recorded, kept apart
+    from every other thread's."""
+    outer = getattr(_CAPTURING, "counts", None)
+    _CAPTURING.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _CAPTURING.counts = outer
 
 
 def add_launches(counts: dict[str, int]) -> None:
     """Add `counts` (kernel name -> launches, as `launch_counts` names
-    them) to the counters. A CUDA graph's replay launches the kernels it
-    captured without calling their wrappers, so whoever replays it adds
-    the captured counts here (solver/programs.py `FusedGraphs`)."""
-    for name, n in counts.items():
-        if name in ("value_kernel", "value_kernel_bf16"):
-            kernel_value.launches[_precision_of(name)] += n
-        elif name in ("value_sig_kernel", "value_sig_kernel_bf16"):
-            kernel_value_sig.launches[_precision_of(name)] += n
-        elif name == "commit_topk":
-            kernel_commit_topk.launches += n
-        elif name == "commit_scan":
-            kernel_commit_scan.launches += n
-        else:
+    them) to the counters, or inside `capture_counts()` to the capture's.
+    A CUDA graph's replay launches the kernels it captured without calling
+    their wrappers, so whoever replays it adds the captured counts here
+    (solver/programs.py `FusedGraphs`). An unknown name raises KeyError
+    before anything is added."""
+    for name in counts:
+        if name not in _COUNTS:
             raise KeyError(f"no kernel named {name!r}")
-
-
-def _precision_of(name: str) -> str:
-    return "bf16" if name.endswith("_bf16") else "fp32"
+    capture = getattr(_CAPTURING, "counts", None)
+    if capture is not None:
+        for name, n in counts.items():
+            capture[name] = capture.get(name, 0) + n
+        return
+    with _COUNT_LOCK:
+        for name, n in counts.items():
+            _COUNTS[name] += n
 
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    kernel_value.launches = dict.fromkeys(VALUE_PLAIN, 0)
-    kernel_value_sig.launches = dict.fromkeys(VALUE_PLAIN, 0)
-    kernel_commit_topk.launches = 0
-    kernel_commit_scan.launches = 0
+    with _COUNT_LOCK:
+        _COUNTS.update(dict.fromkeys(_NAMES, 0))
 
 
 __all__ = [
     "add_launches",
+    "capture_counts",
+    "count_launch",
     "commit_topk_plain",
     "device_commit_scan_plain",
     "kernel_commit_scan",

@@ -63,6 +63,17 @@ class SolverGang:
     def max_pod_demand(self) -> np.ndarray:
         return self.demand.max(axis=0) if self.num_pods else self.demand.sum(axis=0)
 
+    def sig_max_demand(self) -> np.ndarray:
+        """Elementwise max over the signature demands: the fit upper bound
+        the hierarchical pruner compares against each domain's max node
+        free (a domain where some resource cannot satisfy this on any node
+        fits no signature). Cached like total_demand."""
+        m = getattr(self, "_sig_max", None)
+        if m is None:
+            m = np.max([dem for dem, _mask in self.elig_signatures()], axis=0)
+            object.__setattr__(self, "_sig_max", m)
+        return m
+
     def elig_signatures(self) -> list:
         """(max-pod demand, eligibility mask) pairs, one per distinct mask
         class in the gang -- the node-granularity fit proxy the

@@ -11,7 +11,9 @@ The counterparts of the jitted programs of grove_tpu/solver/engine.py:
   buffer, one graph launch, one D2H of the packed result.
 - `inc_score` (K6) -- `_inc_score` (:463): clean gangs' value rows
   gathered from the resident cache, the value kernel run on the dirty rows
-  only, then the commit kernels over the merged matrix.
+  only, then the commit kernels over the merged matrix. On the card it is
+  a CUDA graph per incremental bucket key too, reading the cache from
+  static inputs it is copied into before each replay (`load_cache`).
 - `scatter_rows` (K7) -- `_scatter_rows_impl` (:549): the delta update.
 
 The resident free state is one [N + 1, R] f32 tensor: row N absorbs the
@@ -46,6 +48,10 @@ f32: every index and level is below 2^24.
 """
 
 from __future__ import annotations
+
+import gc
+import threading
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -286,47 +292,152 @@ def inc_score(free, value_cache, td_cache, statics, masks, io,
     return packed, value, td
 
 
-class _Captured:
-    """One captured fused program: its graph, its static input buffers
-    (and the host content each holds), its outputs, and the kernel
-    launches one replay makes."""
+#: CUDA graphs one engine keeps captured, over both programs (fault P2):
+#: past this many keys the least recently replayed graph is evicted
+GRAPH_KEYS = 12
 
-    __slots__ = ("graph", "io", "io_host", "masks", "masks_host", "outs",
-                 "launches")
+#: every capture in the process runs under this lock, on one capture
+#: stream a device. PyTorch's `torch.cuda.graph` empties the caching
+#: allocator when it starts, which must not happen while another thread
+#: captures, so two captures never overlap. The captures themselves run in
+#: "thread_local" mode: what OTHER threads do meanwhile (a wave's
+#: dispatches launching on their engines' streams, the collect loop
+#: waiting on events, allocations) neither fails the capture nor lands in
+#: it. (The other choice, global mode with a lock that every dispatch of a
+#: wave also takes, would serialise the wave's device work behind each
+#: capture.) Nothing but a capture ever runs on the capture stream.
+_CAPTURE_LOCK = threading.Lock()
+_CAPTURE_STREAMS: dict = {}
+#: PyTorch hands out its pooled streams round-robin, 32 to a priority, so
+#: a wave of more sub-engines than that shares normal-priority streams; a
+#: capture stream taken from that pool could be a sub-engine's, whose
+#: launches from another thread would land in (and break) the capture. The
+#: capture stream is taken from the high-priority pool, which nothing else
+#: in this package draws from.
+_CAPTURE_PRIORITY = -1
 
 
-class FusedGraphs:
-    """The fused program as one CUDA graph per bucket key, on the card.
+def load_cache(value_in: torch.Tensor, td_in: torch.Tensor, cache) -> int:
+    """Copy the incremental cache (value [Gc, D], demand [Gc, R]) into
+    K6's static inputs on the current stream, each copy skipped where the
+    two already are the same memory. Returns the copies made."""
+    copies = 0
+    for dst, src in ((value_in, cache[0]), (td_in, cache[1])):
+        if dst.data_ptr() != src.data_ptr():
+            dst.copy_(src)
+            copies += 1
+    return copies
 
-    The key is (layout -- G, S, U, T and the delta block's K --, the
-    eligibility-mask table's rows, precision tier, device commit), the
-    counterpart of jit's one program per static shape. The first solve of
-    a key runs the program once eagerly on a side stream (the kernels'
-    one-time attribute and occupancy calls, cuBLAS's workspace), then
-    captures it; every solve of the key then copies its io buffer (and a
-    changed mask table) into the graph's static inputs and replays it. A
-    failed capture or replay raises: there is no eager fallback.
 
-    The graph points at the engine's resident free tensor and device
-    statics, which the engine never reallocates, and writes its outputs
-    (packed, value, total_demand) in place on every replay: the caller
-    copies packed out right after the replay, on the same stream. The
-    launch counters of kernel_core are Python integers that move once
-    while capturing; a replay adds the captured counts, so they count
-    launches on the card."""
+class GraphLru:
+    """The bounded LRU of one engine's captured graphs: `get` marks a key
+    used, `put` adds one and evicts the least recently used keys past
+    `bound`, calling `on_evict(key, entry)` for each before it is dropped
+    (the engine drops any incremental cache that points into the entry's
+    outputs). Holds any entries: the CPU tests drive it with fakes."""
 
-    def __init__(self, device: torch.device):
-        self.device = device
-        self._entries: dict[tuple, _Captured] = {}
-        #: graphs captured, replays run, replays that carried a delta
-        #: block, and the kernel launches of the replays by kernel name
-        self.captures = 0
-        self.replays = 0
-        self.delta_replays = 0
-        self.launches: dict[str, int] = {}
+    def __init__(self, bound: int = GRAPH_KEYS, on_evict=None):
+        if bound < 1:
+            raise ValueError(f"a graph cache keeps at least one key, got {bound}")
+        self.bound = bound
+        self.on_evict = on_evict
+        self.evictions = 0
+        self._entries: OrderedDict = OrderedDict()
 
     def __len__(self):
         return len(self._entries)
+
+    def __contains__(self, key):
+        return key in self._entries
+
+    def keys(self) -> list:
+        """The keys, least recently used first."""
+        return list(self._entries)
+
+    def items(self):
+        return list(self._entries.items())
+
+    def get(self, key):
+        entry = self._entries.get(key)
+        if entry is not None:
+            self._entries.move_to_end(key)
+        return entry
+
+    def put(self, key, entry) -> None:
+        self._entries[key] = entry
+        self._entries.move_to_end(key)
+        while len(self._entries) > self.bound:
+            old_key, old = self._entries.popitem(last=False)
+            self.evictions += 1
+            if self.on_evict is not None:
+                self.on_evict(old_key, old)
+
+
+class _Captured:
+    """One captured program: its graph, its static inputs (and the host
+    content each holds), its outputs, and the kernel launches one replay
+    makes."""
+
+    __slots__ = ("graph", "io", "io_host", "masks", "masks_host", "value_in",
+                 "td_in", "outs", "launches", "inc")
+
+
+class FusedGraphs:
+    """The fused program K5 and the incremental program K6 as one CUDA
+    graph per bucket key, on the card, within one bounded LRU (GRAPH_KEYS)
+    and one memory pool per engine.
+
+    Keys: K5 (layout -- G, S, U, T and the delta block's K --, the
+    eligibility-mask table's rows, precision tier, device commit); K6
+    ("inc", layout -- G, the dirty rows, R, S, U, T --, the cache's rows
+    Gc, the mask table's rows, tier, device commit): the counterparts of
+    jit's one program per static shape. The first solve of a key runs the
+    program once eagerly, then captures it; every later solve copies its
+    io buffer (and a changed mask table) into the graph's static inputs,
+    K6 also the current cache into its static value and demand inputs
+    (`load_cache`), and replays. K6 gathers from those inputs and writes
+    fresh outputs, never into what it reads. A failed capture or replay raises:
+    there is no eager fallback.
+
+    The graphs point at the engine's resident free tensor and device
+    statics, which the engine never reallocates, and write their outputs
+    (packed, value, total_demand) in place on every replay: the caller
+    copies packed out right after the replay, on the same stream.
+
+    All of one engine's graphs allocate from ONE private pool
+    (`torch.cuda.graph_pool_handle()`): sound only because one engine
+    replays its graphs one after another on one stream, so a graph never
+    runs while another of the pool's graphs uses the same scratch. Each
+    engine has its own pool: the sub-engines of a hierarchical wave replay
+    concurrently on their own streams, and must never share one.
+
+    The launch counters of kernel_core count nothing while capturing (the
+    capture's launches go to its own counts); a replay adds the captured
+    counts, so they count launches on the card."""
+
+    def __init__(self, device: torch.device, on_evict=None):
+        self.device = device
+        self.pool = torch.cuda.graph_pool_handle()
+        self._lru = GraphLru(GRAPH_KEYS, on_evict)
+        #: graphs captured, replays run, replays that carried a delta
+        #: block, K6 replays, and the kernel launches of the replays by
+        #: kernel name
+        self.captures = 0
+        self.replays = 0
+        self.delta_replays = 0
+        self.inc_replays = 0
+        self.launches: dict[str, int] = {}
+
+    def __len__(self):
+        return len(self._lru)
+
+    @property
+    def evictions(self) -> int:
+        return self._lru.evictions
+
+    def entries(self) -> list:
+        """(key, entry) pairs, least recently used first."""
+        return self._lru.items()
 
     def _load(self, dst: torch.Tensor, host: np.ndarray | None,
               arr: np.ndarray) -> np.ndarray:
@@ -342,29 +453,40 @@ class FusedGraphs:
         return arr.copy()
 
     def run(self, key: tuple, free, statics, io_np: np.ndarray,
-            masks_np: np.ndarray | None, lay: IoLayout, **kw):
-        """Replay (capturing first if new) the fused program of `key` on
-        these inputs; `masks_np` None means the statics' all-ones row.
-        Returns the graph's (packed, value, total_demand)."""
-        entry = self._entries.get(key)
+            masks_np: np.ndarray | None, lay: IoLayout, cache=None, **kw):
+        """Replay (capturing first if new) the program of `key` on these
+        inputs: K6 when `cache` (its value and demand tensors) is given,
+        else K5; `masks_np` None means the statics' all-ones row. Returns
+        the graph's (packed, value, total_demand)."""
+        entry = self._lru.get(key)
         if entry is None:
-            entry = self._capture(key, free, statics, io_np, masks_np, lay,
-                                  **kw)
+            entry = self._new_entry(free, statics, io_np, masks_np, lay,
+                                    cache)
+            self._capture(entry, free, statics, lay, **kw)
+            self._lru.put(key, entry)   # may evict the least recent key
         else:
             entry.io_host = self._load(entry.io, entry.io_host, io_np)
             if masks_np is not None:
                 entry.masks_host = self._load(entry.masks, entry.masks_host,
                                               masks_np)
+            if entry.inc:
+                load_cache(entry.value_in, entry.td_in, cache)
             entry.graph.replay()
         kc.add_launches(entry.launches)
         self.replays += 1
-        self.delta_replays += bool(lay.offsets["upd"][1])
+        if entry.inc:
+            self.inc_replays += 1
+        else:
+            self.delta_replays += bool(lay.offsets["upd"][1])
         for name, n in entry.launches.items():
             self.launches[name] = self.launches.get(name, 0) + n
         return entry.outs
 
-    def _capture(self, key, free, statics, io_np, masks_np, lay, **kw):
+    def _new_entry(self, free, statics, io_np, masks_np, lay, cache):
+        """A key's static inputs, allocated outside the pool (so no graph's
+        scratch ever lands on them) and filled."""
         entry = _Captured()
+        entry.inc = cache is not None
         entry.io = torch.empty((lay.size,), dtype=torch.float32,
                                device=self.device)
         entry.io_host = self._load(entry.io, None, io_np)
@@ -374,25 +496,52 @@ class FusedGraphs:
             entry.masks = torch.empty(masks_np.shape, dtype=torch.float32,
                                       device=self.device)
             entry.masks_host = self._load(entry.masks, None, masks_np)
-        # warm-up: one eager run on a side stream, as PyTorch's graph
-        # rules ask (its launches are real and count)
+        entry.value_in = entry.td_in = None
+        if entry.inc:
+            entry.value_in = torch.empty_like(cache[0])
+            entry.td_in = torch.empty_like(cache[1])
+            load_cache(entry.value_in, entry.td_in, cache)
+        return entry
+
+    def _program(self, entry, free, statics, lay, **kw):
+        if entry.inc:
+            return inc_score(free, entry.value_in, entry.td_in, statics,
+                             entry.masks, entry.io, lay, **kw)
+        return fused_score(free, statics, entry.masks, entry.io, lay, **kw)
+
+    def _capture(self, entry, free, statics, lay, **kw):
+        """Warm up (one eager run: the kernels' attribute and occupancy
+        calls, cuBLAS's workspace for the capture stream) and capture, both
+        on the device's capture stream under the capture lock, then replay
+        once on the caller's stream."""
         cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            fused_score(free, statics, entry.masks, entry.io, lay, **kw)
-        cur.wait_stream(side)
-        before = kc.launch_counts()
         entry.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(entry.graph):
-            entry.outs = fused_score(free, statics, entry.masks, entry.io,
-                                     lay, **kw)
-        after = kc.launch_counts()
-        # capturing launched nothing: take its counts back, and add them
-        # per replay instead
-        entry.launches = {k: after[k] - before[k] for k in after}
-        kc.add_launches({k: -v for k, v in entry.launches.items()})
+        with _CAPTURE_LOCK:
+            # no cyclic garbage collection while capturing (a collection
+            # could free an unreachable engine's graphs or events here, a
+            # CUDA call that invalidates the capture); toggled under the
+            # lock, since the switch is process-wide
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                cap = _CAPTURE_STREAMS.get(self.device)
+                if cap is None:
+                    cap = _CAPTURE_STREAMS[self.device] = torch.cuda.Stream(
+                        self.device, priority=_CAPTURE_PRIORITY)
+                cap.wait_stream(cur)
+                with torch.cuda.stream(cap):
+                    # its launches are real and count
+                    self._program(entry, free, statics, lay, **kw)
+                with kc.capture_counts() as counts, torch.cuda.graph(
+                    entry.graph, pool=self.pool, stream=cap,
+                    capture_error_mode="thread_local",
+                ):
+                    entry.outs = self._program(entry, free, statics, lay,
+                                               **kw)
+                cur.wait_stream(cap)
+            finally:
+                if collecting:
+                    gc.enable()
+        entry.launches = counts
         self.captures += 1
         entry.graph.replay()
-        self._entries[key] = entry
-        return entry

@@ -3,8 +3,9 @@
 A backlog of 8-pod gangs (1000 at full size) over a kwok-style simulated
 cluster (5000 nodes) with a 3-tier block/rack/host topology: the same
 cluster and backlog as the JAX package's bench.py (`make_cluster`,
-`make_gangs`, and the 4-tier `make_tier_cluster`), copied here so
-chip_smoke.py needs nothing of grove_tpu.
+`make_gangs`, and the scale tiers' 4-tier `make_tier_cluster` with its
+block-confined `make_tier_gangs`), copied here so chip_smoke.py needs
+nothing of grove_tpu.
 """
 
 from __future__ import annotations
@@ -70,6 +71,31 @@ def make_tier_cluster(num_nodes: int):
         ]
     )
     return encode_topology(ct, nodes)
+
+
+def make_tier_gangs(num_gangs: int) -> list[SolverGang]:
+    """Block-confined 8-pod gangs (required block, preferred rack) for the
+    scale tiers (bench.py --scale-tier: 4000 gangs on 20k nodes, 20000 on
+    100k): what confines the backlog so the hierarchy prunes at the block
+    level."""
+    gangs = []
+    demand = np.tile(np.array([4.0, 16.0, 1.0], np.float32), (8, 1))
+    for i in range(num_gangs):
+        gangs.append(
+            SolverGang(
+                name=f"tier{i:06d}",
+                namespace="bench",
+                demand=demand,
+                pod_names=[f"tier{i:06d}-p{j}" for j in range(8)],
+                group_ids=np.zeros(8, np.int32),
+                group_names=["workers"],
+                group_required_level=np.array([-1], np.int32),
+                group_preferred_level=np.array([-1], np.int32),
+                required_level=1,
+                preferred_level=2,
+            )
+        )
+    return gangs
 
 
 def make_gangs(num_gangs: int, grouped: bool = False) -> list[SolverGang]:

@@ -53,6 +53,7 @@ from grove_tpu_torch.solver.kernel_core import (
     device_commit_scan_plain,
     kernel_commit_scan,
     kernel_commit_topk,
+    launch_counts,
 )
 
 
@@ -139,9 +140,9 @@ def test_device_commit_plain_bit_equal(spaces, top_k):
         np.testing.assert_array_equal(out_val.numpy(), np.asarray(ref_val))
         np.testing.assert_array_equal(out_dom.numpy(), np.asarray(ref_dom))
         # the wrapper on CPU tensors is the plain version, with no launch
-        before = kernel_commit_scan.launches
+        before = launch_counts()["commit_scan"]
         w_val, w_dom = kernel_commit_scan(*args)
-        assert kernel_commit_scan.launches == before
+        assert launch_counts()["commit_scan"] == before
         np.testing.assert_array_equal(w_val.numpy(), out_val.numpy())
         np.testing.assert_array_equal(w_dom.numpy(), out_dom.numpy())
 
@@ -262,9 +263,9 @@ def test_commit_topk_plain_ragged_chunk(spaces, g, chunk, top_k):
     np.testing.assert_array_equal(out_val.numpy(), ref_val)
     np.testing.assert_array_equal(out_dom.numpy(), ref_dom)
     # the wrapper on CPU tensors is the plain version, with no launch
-    before = kernel_commit_topk.launches
+    before = launch_counts()["commit_topk"]
     w_val, w_dom = kernel_commit_topk(*args, top_k, chunk)
-    assert kernel_commit_topk.launches == before
+    assert launch_counts()["commit_topk"] == before
     np.testing.assert_array_equal(w_val.numpy(), ref_val)
     np.testing.assert_array_equal(w_dom.numpy(), ref_dom)
     with pytest.raises(ValueError, match="chunk"):

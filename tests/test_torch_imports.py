@@ -83,3 +83,11 @@ def test_native_modules_are_scanned():
     assert {"grove_tpu_torch.native", "grove_tpu_torch.native.build",
             "grove_tpu_torch.native.serial_native"} <= mods
     assert (PACKAGE / "native" / "serial_scorer.cpp").is_file()
+
+
+def test_hierarchy_module_is_scanned():
+    """The port's own copy of the hierarchical solve is among the modules
+    both checks above cover (the JAX package's is numpy-only, and still
+    not imported)."""
+    assert "grove_tpu_torch.solver.hierarchy" in set(_modules())
+    assert (PACKAGE / "solver" / "hierarchy.py").is_file()

@@ -49,6 +49,7 @@ from grove_tpu_torch.solver.engine import (
     value_from_aggregates,
 )
 from grove_tpu_torch.solver.kernel_core import (
+    count_launch,
     kernel_commit_scan,
     kernel_commit_topk,
     kernel_value,
@@ -175,16 +176,19 @@ def test_wrapper_takes_plain_version_on_cpu():
 
 
 def test_launch_counters_reset():
-    kernel_value.launches["bf16"] += 3
-    kernel_value_sig.launches["bf16"] += 2
-    kernel_value_sig.launches["fp32"] += 1
-    kernel_commit_topk.launches += 2
+    before = launch_counts()
+    count_launch("value_kernel_bf16", 3)
+    count_launch("value_sig_kernel_bf16", 2)
+    count_launch("value_sig_kernel")
+    count_launch("commit_topk", 2)
     counts = launch_counts()
     # each entry counts its own launches only
-    assert counts["value_kernel_bf16"] == kernel_value.launches["bf16"] >= 3
-    assert counts["value_sig_kernel_bf16"] == kernel_value_sig.launches["bf16"] >= 2
-    assert counts["value_sig_kernel"] == kernel_value_sig.launches["fp32"] >= 1
-    assert counts["value_kernel"] == kernel_value.launches["fp32"]
+    assert counts["value_kernel_bf16"] == before["value_kernel_bf16"] + 3
+    assert counts["value_sig_kernel_bf16"] == before["value_sig_kernel_bf16"] + 2
+    assert counts["value_sig_kernel"] == before["value_sig_kernel"] + 1
+    assert counts["value_kernel"] == before["value_kernel"]
+    assert counts["commit_topk"] == before["commit_topk"] + 2
+    assert counts["commit_scan"] == before["commit_scan"]
     reset_launches()
     assert launch_counts() == {"value_kernel": 0, "value_kernel_bf16": 0,
                                "value_sig_kernel": 0,
