@@ -8,8 +8,12 @@ grove_tpu. It covers the flat single-device placement solve,
 precisions (`pallas_precision="fp32"` or `"bf16"`), and the host modules
 it needs (topology encoding, exact fit primitives, unsat diagnosis, and
 the native C++ serial solve and exact repair, built with g++ at first
-use). Its entry points run on the card unless the caller passes
-device="cpu".
+use), the hierarchical two-level solve, the workload API (`api`:
+PodCliqueSet, PodGang, validation and defaulting) with the encode of
+PodGangs into the solver's gangs (`solver.encode_podgangs`), and the
+observability the engine reports into (`observability`: metrics, the
+span tracer, the decision log). Its entry points run on the card unless
+the caller passes device="cpu".
 """
 
 # .solver before .native: the engine imports native, which imports solver

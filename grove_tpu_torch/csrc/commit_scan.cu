@@ -35,6 +35,15 @@
 // once. The outputs are written from the staged values. A step is then a
 // chain of some ten dependent shared-memory, vote and shuffle operations
 // on one warp, with no other warp to hide their latency.
+//
+// Layouts (the `layout` argument, chosen by kernel_core.scan_layout):
+// bit 0 keeps the residual in shared memory; clear, it lives in the global
+// `scratch` [D, R] that the caller allocates (256 KB at D = 21335, R = 3:
+// it stays in L2), and only the ring stays in shared memory. The walker's
+// reads and decrements keep their order, so both layouts give the same
+// bits. The residual is written inside the kernel, so it is read with
+// plain loads only (no __ldg, no const __restrict__); the walker's
+// __syncwarp() orders its global writes before the next step's reads.
 
 #include <cuda_runtime.h>
 
@@ -67,13 +76,16 @@ commit_scan_kernel(const float* __restrict__ top_val,   // [G, K]
                    const float* __restrict__ td,        // [G, R]
                    float* __restrict__ out_val,         // [G]
                    int* __restrict__ out_dom,           // [G]
-                   int G, int K, int D, int R, int L1) {
+                   float* scratch,  // [D, R] unless bit 0 of layout
+                   int G, int K, int D, int R, int L1, int layout) {
   extern __shared__ float smem[];
-  float* resid = smem;  // [D * R]; the absorbing row D is never stored
+  const bool resid_shared = layout & 1;
+  // [D * R]; the absorbing row D is never stored
+  float* resid = resid_shared ? smem : scratch;
   // a ring slot: val [kTile * K], dom [kTile * K], td [kTile * R],
   // chain [kTile * K * L1]
   const int slot_words = kTile * (2 * K + R + K * L1);
-  float* ring = resid + static_cast<size_t>(D) * R;
+  float* ring = resid_shared ? smem + static_cast<size_t>(D) * R : smem;
   const int tiles = (G + kTile - 1) / kTile;
 
   for (int i = threadIdx.x; i < D * R; i += blockDim.x) resid[i] = dom_free[i];
@@ -176,15 +188,20 @@ commit_scan_kernel(const float* __restrict__ top_val,   // [G, K]
 
 // C entry point: launches one block on `stream` and returns
 // cudaGetLastError() (or the error of raising the kernel's dynamic
-// shared-memory limit).
+// shared-memory limit, or cudaErrorInvalidValue for a residual in global
+// memory without scratch). `layout` as above; `scratch` is read only when
+// bit 0 is clear (it may be null otherwise).
 extern "C" int grove_commit_scan(const float* top_val, const int* top_dom,
                                  const float* dom_free, const int* anc_ids,
                                  const float* td, float* out_val, int* out_dom,
-                                 int G, int K, int D, int R, int L1,
-                                 void* stream) {
+                                 float* scratch, int G, int K, int D, int R,
+                                 int L1, int layout, void* stream) {
   if (G == 0) return static_cast<int>(cudaSuccess);
+  if (!(layout & 1) && scratch == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const size_t smem =
-      (static_cast<size_t>(D) * R +
+      ((layout & 1 ? static_cast<size_t>(D) * R : 0) +
        static_cast<size_t>(kSlots) * kTile * (2 * K + R + K * L1)) *
       sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -192,7 +209,7 @@ extern "C" int grove_commit_scan(const float* top_val, const int* top_dom,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   commit_scan_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      top_val, top_dom, dom_free, anc_ids, td, out_val, out_dom, G, K, D, R,
-      L1);
+      top_val, top_dom, dom_free, anc_ids, td, out_val, out_dom, scratch, G, K,
+      D, R, L1, layout);
   return static_cast<int>(cudaGetLastError());
 }

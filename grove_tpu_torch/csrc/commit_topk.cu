@@ -33,6 +33,16 @@
 //   - the row's values are already in shared memory: they were copied
 //     there with cp.async before the previous chunk's grid barrier (they do
 //     not depend on the residual);
+// Layouts (the `layout` argument, chosen by kernel_core.topk_layout):
+// bit 0 keeps the residual copy in shared memory, else in the block's own
+// [D, R] slice of the global `scratch` [blocks, D, R] that the caller
+// allocates (8.2 MB at D = 21335, R = 3 and 32 blocks: it stays in L2);
+// bit 1 keeps the row in shared memory, else the mask pass reads it from
+// `value` itself. Only the pointers change, so every layout gives the same
+// bits. The residual is written inside the kernel, so it is read with
+// plain loads only (no __ldg, no const __restrict__): the block's
+// __syncthreads() and __syncwarp() order its global writes before its
+// next reads, as they do in shared memory.
 //   - one masking pass computes jitter and mask per element and keeps, per
 //     thread, a sorted top-K of 64-bit keys in registers (order-preserving
 //     float bits above the complemented index, so one unsigned compare is
@@ -132,19 +142,26 @@ commit_topk_kernel(const float* __restrict__ value,     // [G, D] un-jittered
                    const float* __restrict__ td,        // [G, R]
                    float* top_val,                      // [G, K]
                    int* top_dom,                        // [G, K]
-                   int G, int D, int R, int L1, int K, int C) {
+                   float* scratch,  // [blocks, D, R] unless bit 0 of layout
+                   int G, int D, int R, int L1, int K, int C, int layout) {
   extern __shared__ Key smem[];
+  const bool resid_shared = layout & 1;
+  const bool row_shared = layout & 2;
+  const int b = blockIdx.x;
   Key* lists = smem;                              // [kWarps * K]
-  float* resid = reinterpret_cast<float*>(lists + kWarps * K);  // [D * R]
-  float* row = resid + static_cast<size_t>(D) * R;     // [D]
-  float* td_row = row + D;                             // [R]
+  float* tail = reinterpret_cast<float*>(lists + kWarps * K);
+  // the residual: [D * R] in shared memory, or this block's scratch slice
+  float* resid = resid_shared ? tail : scratch + static_cast<size_t>(b) * D * R;
+  if (resid_shared) tail += static_cast<size_t>(D) * R;
+  float* row = tail;                                   // [D] if row_shared
+  if (row_shared) tail += D;
+  float* td_row = tail;                                // [R]
   cg::grid_group grid = cg::this_grid();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.x;
 
   for (int i = threadIdx.x; i < D * R; i += blockDim.x) resid[i] = dom_free[i];
-  if (b < G) prefetch_row(row, value, b, D);
+  if (b < G && row_shared) prefetch_row(row, value, b, D);
   for (int r = threadIdx.x; r < R && b < G; r += blockDim.x) td_row[r] = td[b * R + r];
   cp_async_wait_all();
   __syncthreads();
@@ -153,6 +170,8 @@ commit_topk_kernel(const float* __restrict__ value,     // [G, D] un-jittered
     const int rows = min(C, G - start);
     const int g = start + b;
     if (b < rows) {
+      // the row: staged in shared memory, or read where it lies
+      const float* vrow = row_shared ? row : value + static_cast<size_t>(g) * D;
       // mask + per-thread top-KMAX (top KMAX contains the top K)
       Key best[KMAX];
 #pragma unroll
@@ -164,7 +183,7 @@ commit_topk_kernel(const float* __restrict__ value,     // [G, D] un-jittered
           if (r < R) fits &= resid[d * R + r] + 1e-6f >= td_row[r];
         }
         for (int r = 4; r < R; ++r) fits &= resid[d * R + r] + 1e-6f >= td_row[r];
-        const float v = fits ? jittered(row[d], g, d) : kNeg;
+        const float v = fits ? jittered(vrow[d], g, d) : kNeg;
         const Key key = make_key(v, d);
         if (key > best[KMAX - 1]) {
           best[KMAX - 1] = key;
@@ -205,7 +224,7 @@ commit_topk_kernel(const float* __restrict__ value,     // [G, D] un-jittered
     // the next chunk's row does not depend on the residual: start its copy
     const int next = g + C;
     const bool has_next = start + C < G && b < min(C, G - start - C);
-    if (has_next) prefetch_row(row, value, next, D);
+    if (has_next && row_shared) prefetch_row(row, value, next, D);
     grid.sync();  // the chunk's picks are in global memory
 
     // commit: warp (j, r) applies column j of the chunk's chains to
@@ -247,11 +266,14 @@ commit_topk_kernel(const float* __restrict__ value,     // [G, D] un-jittered
 
 template <int KMAX>
 int launch(const float* value, const float* dom_free, const int* anc_ids,
-           const float* td, float* top_val, int* top_dom, int G, int D, int R,
-           int L1, int K, int C, cudaStream_t stream) {
+           const float* td, float* top_val, int* top_dom, float* scratch,
+           int G, int D, int R, int L1, int K, int C, int layout,
+           cudaStream_t stream) {
   const int blocks = C < G ? C : G;
-  const size_t smem = static_cast<size_t>(kWarps) * K * sizeof(Key) +
-                      (static_cast<size_t>(D) * R + D + R) * sizeof(float);
+  const size_t smem =
+      static_cast<size_t>(kWarps) * K * sizeof(Key) +
+      ((layout & 1 ? static_cast<size_t>(D) * R : 0) + (layout & 2 ? D : 0) +
+       R) * sizeof(float);
   auto kernel = commit_topk_kernel<KMAX>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -269,7 +291,7 @@ int launch(const float* value, const float* dom_free, const int* anc_ids,
     return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   }
   void* args[] = {&value, &dom_free, &anc_ids, &td, &top_val, &top_dom,
-                  &G, &D, &R, &L1, &K, &C};
+                  &scratch, &G, &D, &R, &L1, &K, &C, &layout};
   err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args,
                                     smem, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -279,24 +301,31 @@ int launch(const float* value, const float* dom_free, const int* anc_ids,
 }  // namespace
 
 // C entry point: one cooperative launch of min(C, G) blocks on `stream`.
-// K <= 8 keeps 8 keys a thread, K <= 32 keeps 32. Returns
+// K <= 8 keeps 8 keys a thread, K <= 32 keeps 32. `layout` as above;
+// `scratch` is read only when bit 0 is clear (it may be null otherwise).
+// Returns
 // cudaGetLastError()-style codes: the error of raising the dynamic
 // shared-memory limit, cudaErrorCooperativeLaunchTooLarge when the blocks
 // cannot all be resident at once, cudaErrorInvalidValue for K outside
-// 1..32, or the launch's own error.
+// 1..32 or a residual in global memory without scratch, or the launch's
+// own error.
 extern "C" int grove_commit_topk(const float* value, const float* dom_free,
                                  const int* anc_ids, const float* td,
-                                 float* top_val, int* top_dom, int G, int D,
-                                 int R, int L1, int K, int C, void* stream) {
+                                 float* top_val, int* top_dom, float* scratch,
+                                 int G, int D, int R, int L1, int K, int C,
+                                 int layout, void* stream) {
   if (G == 0) return static_cast<int>(cudaSuccess);
+  if (!(layout & 1) && scratch == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (K >= 1 && K <= 8) {
-    return launch<8>(value, dom_free, anc_ids, td, top_val, top_dom, G, D, R,
-                     L1, K, C, s);
+    return launch<8>(value, dom_free, anc_ids, td, top_val, top_dom, scratch,
+                     G, D, R, L1, K, C, layout, s);
   }
   if (K >= 1 && K <= 32) {
-    return launch<32>(value, dom_free, anc_ids, td, top_val, top_dom, G, D, R,
-                      L1, K, C, s);
+    return launch<32>(value, dom_free, anc_ids, td, top_val, top_dom, scratch,
+                      G, D, R, L1, K, C, layout, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

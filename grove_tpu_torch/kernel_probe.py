@@ -1,6 +1,7 @@
 """Where the value kernel and the two commit kernels spend their time, on the card.
 
 Usage: python -m grove_tpu_torch.kernel_probe [--old-k1 PATH] [--old-k2 PATH]
+       python -m grove_tpu_torch.kernel_probe --sass CU [CU ...]
 
 Value kernel (K1), on the stress solve's own operands (5000 nodes, 1000
 gangs: G = 1024, D = 5334, U = 4, S = 1, R = 3, T = 2 demand rows), by
@@ -34,7 +35,14 @@ also times that kernel and its variants built with macros: K = 1, no
 commit, no masking load from device memory, neither, and the grid barrier
 alone. Their differences split its time a chunk.
 
-Needs one CUDA card and nvcc; builds into build/grove_tpu_torch/probe/.
+With --sass, only builds the given CUDA sources with the kernels' flags
+and counts, per kernel instance, the opcodes of shared, generic and global
+memory, barriers and warp votes and shuffles in their SASS (cuobjdump),
+each listing written beside the libraries: two versions of a kernel side
+by side.
+
+Needs one CUDA card and nvcc (--sass: nvcc only); builds into
+build/grove_tpu_torch/probe/.
 """
 
 from __future__ import annotations
@@ -295,30 +303,50 @@ _SIG_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 #: the earlier kernel's, on a gathered cnt_fit: 10 pointers, G D R, stream
 _OLD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 SASS_OUT = PROBE_DIR / "value_kernel.sass"
+#: the value kernel's opcodes counted: MUFU (one a division), FCHK, F2F
+#: and F2FP (bf16 roundings), STG, CALL and BRA
+VALUE_OPS = ("MUFU", "FCHK", "F2F", "F2FP", "STG", "CALL", "BRA")
+#: --sass's opcodes: shared (LDS, STS, ATOMS), generic (LD, ST, ATOM) and
+#: global (LDG, STG, RED) memory, barriers and warp votes and shuffles
+MEMORY_OPS = ("LDS", "STS", "ATOMS", "LD", "ST", "ATOM", "LDG", "STG", "RED",
+              "BAR", "WARPSYNC", "VOTE", "SHFL", "MATCH", "BRA")
 
 
-def _sass_counts(lib_path: Path) -> None:
-    """cuobjdump's SASS of the value kernel library: written whole to
-    SASS_OUT, and per kernel instance (value_kernel<bf16, R, bits>) its
-    instruction count and those of MUFU (one a division), FCHK, F2F and
-    F2FP (bf16 roundings), STG, CALL and BRA."""
+def _sass_counts(lib_path: Path, out: Path = SASS_OUT,
+                 keys=VALUE_OPS) -> None:
+    """cuobjdump's SASS of a kernel library: written whole to `out`, and
+    per kernel instance (e.g. value_kernel<bf16, R, bits>) its instruction
+    count and those of the opcodes `keys`."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     text = subprocess.run(
         [str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass", str(lib_path)],
         capture_output=True, text=True, check=True, timeout=300).stdout
-    SASS_OUT.parent.mkdir(parents=True, exist_ok=True)
-    SASS_OUT.write_text(text)
-    print(f"value kernel SASS: {SASS_OUT} ({len(text.splitlines())} lines)")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(text)
+    print(f"SASS of {lib_path.name}: {out} ({len(text.splitlines())} lines)")
     for block in text.split("Function : ")[1:]:
         name = _kernel_name(block.splitlines()[0].strip())
         ops = collections.Counter(
             m.group(1).split(".")[0]
             for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
                                  block))
-        keys = ("MUFU", "FCHK", "F2F", "F2FP", "STG", "CALL", "BRA")
         print(f"  {name[:70]}: {sum(ops.values())} instructions, "
               + ", ".join(f"{k} {ops[k]}" for k in keys))
+
+
+def sass_section(paths: list[str]) -> None:
+    """Each CUDA source in `paths` built with the kernels' own flags, its
+    SASS written to PROBE_DIR/sass_<i>_<stem>.sass and its memory, barrier
+    and warp opcodes counted per kernel instance: two versions of a kernel
+    side by side (e.g. `git show <commit>:grove_tpu_torch/csrc/commit_scan.cu`
+    beside the current file). Needs nvcc, not a card."""
+    names = {f"sass_{i}_{Path(path).stem}": path for i, path in enumerate(paths)}
+    _build({name: (Path(path).read_text(), []) for name, path in names.items()})
+    for name, path in names.items():
+        print(f"{path}:")
+        _sass_counts(PROBE_DIR / f"lib{name}.so", PROBE_DIR / f"{name}.sass",
+                     MEMORY_OPS)
 
 
 def value_section(kc, engine, gangs, flush, old_k1) -> None:
@@ -485,7 +513,12 @@ def main(argv=None) -> int:
     parser.add_argument("--old-k1", help="an earlier value_kernel.cu (gathered "
                         "cnt_fit), timed with the gather and min")
     parser.add_argument("--old-k2", help="PR 2's commit_topk.cu, for step 0")
+    parser.add_argument("--sass", nargs="+", metavar="CU",
+                        help="only count the SASS opcodes of these sources")
     args = parser.parse_args(argv)
+    if args.sass:
+        sass_section(args.sass)
+        return 0
     if not torch.cuda.is_available():
         print("kernel_probe: CUDA is not available", file=sys.stderr)
         return 2
@@ -523,16 +556,24 @@ def main(argv=None) -> int:
     f32, i32 = torch.float32, torch.int32
     jittered = torch.where(value > -5e8, value + kc.tie_jitter(g, d, dev), value)
 
-    def topk_call(lib, src_value, kk):
+    # the current sources with everything in shared memory (the stress
+    # shape's layout); an --old-k2 source's entry point has no scratch or
+    # layout argument
+    def topk_call(lib, src_value, kk, current=True):
         out = (torch.empty((g, kk), dtype=f32, device=dev),
                torch.empty((g, kk), dtype=i32, device=dev))
         fn = lib.grove_commit_topk
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         ptrs = [src_value.data_ptr(), dom_free.data_ptr(), anc.data_ptr(),
                 td.data_ptr(), out[0].data_ptr(), out[1].data_ptr()]
+        ints = [g, d, r, l1, kk, chunk]
+        if current:
+            ptrs.append(None)
+            ints.append(3)
+        fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints)
+                       + [ctypes.c_void_p])
 
         def call():
-            if fn(*ptrs, g, d, r, l1, kk, chunk, stream) != 0:
+            if fn(*ptrs, *ints, stream) != 0:
                 raise RuntimeError("commit top-k launch failed")
         return call, out
 
@@ -540,12 +581,13 @@ def main(argv=None) -> int:
         out = (torch.empty((g, 1), dtype=f32, device=dev),
                torch.empty((g, 1), dtype=i32, device=dev))
         fn = lib.grove_commit_scan
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         ptrs = [top_val.data_ptr(), top_dom.data_ptr(), dom_free.data_ptr(),
-                anc.data_ptr(), td.data_ptr(), out[0].data_ptr(), out[1].data_ptr()]
+                anc.data_ptr(), td.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                None]
 
         def call():
-            if fn(*ptrs, g, k, d, r, l1, stream) != 0:
+            if fn(*ptrs, g, k, d, r, l1, 1, stream) != 0:
                 raise RuntimeError("commit-scan launch failed")
         return call, out
 
@@ -571,7 +613,8 @@ def main(argv=None) -> int:
         print("old commit top-k (pre-jittered values), variants")
         for name in _OLD_K2_VARIANTS:
             for kk in (8, 1):
-                call, out = topk_call(libs[f"old_{name}"], jittered, kk)
+                call, out = topk_call(libs[f"old_{name}"], jittered, kk,
+                                      current=False)
                 ms = _median_ms(call, flush)
                 print(f"  {name:18s} K={kk}: {ms:.6f} ms, "
                       f"{ms / chunks * 1e3:.3f} us a chunk")

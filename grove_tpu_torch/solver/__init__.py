@@ -8,6 +8,8 @@
                      (grove_tpu_torch/native) or by the fit.py primitives.
   kernel_core.py  -- the hand-written CUDA kernels of the device phase
                      and their plain PyTorch twins.
+  problem.py      -- PodGangs (the scheduler contract) encoded into the
+                     dense gang structs every solve path takes.
 """
 
 from .engine import PlacementEngine
@@ -26,7 +28,7 @@ from .kernel_core import (
     value_sig_plain,
     value_sig_plain_bf16,
 )
-from .problem import SolverGang
+from .problem import SolverGang, encode_podgangs
 from .result import GangPlacement, SolveResult
 from .serial import solve_serial
 
@@ -37,6 +39,7 @@ __all__ = [
     "SolverGang",
     "commit_topk_plain",
     "device_commit_scan_plain",
+    "encode_podgangs",
     "kernel_commit_scan",
     "kernel_commit_topk",
     "kernel_value",

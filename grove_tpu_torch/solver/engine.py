@@ -48,8 +48,20 @@ Knobs keep the JAX package's names (`native_repair`, `pallas_core`,
 `device_commit`, `pallas_precision`, `state_cache`, `state_verify`,
 `fused`, `incremental`); see `resolve_kernel_tiers` for what the kernel
 knobs mean here. Not ported: the JAX engine's capability-miss fallback
-(`_guard_kernel`; a failed launch, capture or replay raises here) and its
-metrics, tracer and decision-log hooks (ROADMAP.md).
+(`_guard_kernel`; a failed launch, capture or replay raises here, so
+`grove_solver_pallas_fallbacks_total` has no counterpart).
+
+Observability, as in the JAX engine: `metrics=` (a MetricsRegistry: the
+solve outcome, uploads, bytes moved by payload kind, launches by path,
+incremental rows, the hierarchical waves), `tracer=` (spans
+engine.fused / engine.encode, engine.device, engine.repair,
+engine.delta_apply, engine.whatif, engine.hierarchical, engine.hier_wave
+and the engine.fine_solve points) and `decision_log=` (a DecisionLog; a
+private one by default, `engine.decisions = None` turns it off). Every
+span and counter is recorded on the host, on the calling thread, around
+the launches and never inside a CUDA graph capture; sub-engines of the
+hierarchical solve have none of the three, and their fine solves are
+reported by the parent when it collects them, in domain order.
 
 HIERARCHICAL solve (`hierarchical=True`, solver/hierarchy.py): a coarse
 domain-level pass prunes and assigns, and exact solves run only inside
@@ -77,7 +89,9 @@ import numpy as np
 import torch
 
 from ..native.serial_native import repair_native
-from ..observability.explain import diagnose_unplaced
+from ..observability.causal import next_token
+from ..observability.explain import DecisionLog, diagnose_unplaced
+from ..observability.tracing import NOOP_TRACER
 from ..topology.encoding import TopologySnapshot
 from .fit import place_gang_in_domain, placement_score_for_nodes
 from . import programs
@@ -294,6 +308,31 @@ class Statics(NamedTuple):
     ones: torch.Tensor         # f32 [1, N] the default eligibility table
 
 
+def record_solve_metrics(metrics, result: SolveResult, backlog: int) -> None:
+    """Feed one solve's outcome into the registry: the one place the
+    solver's end-to-end metrics are written (backlog size, bind wall,
+    placed and unplaced gangs, repair fallbacks, the score distribution),
+    as in the JAX engine."""
+    m = metrics
+    m.gauge("grove_solver_backlog_size",
+            "gangs entering the last solve").set(float(backlog))
+    m.histogram("grove_solver_backlog_bind_seconds",
+                "wall time to bind one full backlog").observe(
+        result.wall_seconds)
+    m.counter("grove_solver_gangs_placed_total",
+              "gangs placed across all solves").inc(result.num_placed)
+    m.counter("grove_solver_gangs_unplaced_total",
+              "gangs left unplaced across all solves").inc(
+        len(result.unplaced))
+    m.counter("grove_solver_repair_fallbacks_total",
+              "exact-repair serial fallbacks").inc(
+        result.stats.get("fallbacks", 0.0))
+    score_h = m.histogram("grove_solver_placement_score",
+                          "per-gang placement score (0,1]")
+    for p in result.placed.values():
+        score_h.observe(p.placement_score)
+
+
 class DeviceFreeState:
     """Device-resident cluster free-capacity state of one engine.
 
@@ -458,8 +497,22 @@ class PlacementEngine:
         hier_prune_level: int | None = None,
         hier_min_nodes: int = 0,
         hier_parallel_workers: int | None = None,
+        metrics=None,
+        tracer=None,
+        decision_log=None,
     ):
         self.device = resolve_device(device)
+        #: observability.MetricsRegistry (None = no metrics)
+        self.metrics = metrics
+        #: observability.tracing.Tracer; NOOP_TRACER allocates nothing
+        self.tracer = NOOP_TRACER if tracer is None else tracer
+        #: causal token of the current hierarchical round: the
+        #: engine.fine_solve points link it
+        self._hier_token = None
+        #: placement-decision ring (observability/explain.py): every solve
+        #: records its placed decompositions and unplaced diagnoses, on
+        #: the host after the repair. None = no recording.
+        self.decisions = DecisionLog() if decision_log is None else decision_log
         self.pallas_core, self.device_commit = resolve_kernel_tiers(
             self.device.type, pallas_core, device_commit, pallas_precision
         )
@@ -694,7 +747,9 @@ class PlacementEngine:
             self._free_buf = torch.zeros((n + 1, r), dtype=torch.float32,
                                          device=self.device)
         # into the one resident tensor, never a new one: graphs point at it
-        self._free_buf[:n].copy_(torch.from_numpy(masked))
+        with self.tracer.span("engine.delta_apply", kind="full",
+                              rows=masked.shape[0], epoch=st.epoch + 1):
+            self._free_buf[:n].copy_(torch.from_numpy(masked))
         st.dev = self._free_buf
         st.mirror = masked if self.state_cache else None
         st.epoch += 1
@@ -703,6 +758,7 @@ class PlacementEngine:
         self._sync_changed = None
         # staged rows are content the full matrix already carries
         self._staged = None
+        self._count_upload("full", masked.nbytes)
         return st.epoch
 
     def _sync_free(self, free: np.ndarray, defer: bool = False) -> int:
@@ -751,23 +807,32 @@ class PlacementEngine:
             # diffed, which this was not)
             self._sync_changed = changed
         elif defer and self.fused:
-            staged = self._staged
-            if staged is None:
-                staged = self._staged = {}
-            for i, row in zip(changed.tolist(), new_rows):
-                staged[i] = row
+            with self.tracer.span("engine.delta_apply", kind="delta",
+                                  staged=True, rows=int(changed.size),
+                                  epoch=st.epoch + 1):
+                staged = self._staged
+                if staged is None:
+                    staged = self._staged = {}
+                for i, row in zip(changed.tolist(), new_rows):
+                    staged[i] = row
             st.mirror[changed] = new_rows
             st.epoch += 1
             st.delta_uploads += 1
+            # the upload counted now; its bytes when the next fused launch
+            # ships the staged block (a full upload may supersede it)
+            self._count_upload("delta", 0)
         else:
             upd = self._update_block(dict(zip(changed.tolist(), new_rows)))
-            programs.scatter_rows(st.dev, self._h2d(upd))
+            with self.tracer.span("engine.delta_apply", kind="delta",
+                                  rows=int(changed.size), epoch=st.epoch + 1):
+                programs.scatter_rows(st.dev, self._h2d(upd))
             st.mirror[changed] = new_rows
             st.epoch += 1
             st.delta_uploads += 1
             # the standalone scatter is its own launch: one of the two the
             # fused path collapses into one
             self._count_dispatch_kind("split")
+            self._count_upload("delta", upd.nbytes)
         if self.state_verify:
             self._verify_state(free)
         return st.epoch
@@ -822,13 +887,43 @@ class PlacementEngine:
                 f"{bad[:8].tolist()} at epoch {st.epoch}"
             )
 
+    def _count_upload(self, kind: str, nbytes: int) -> None:
+        if self.metrics is None:
+            return
+        self.metrics.counter(
+            "grove_solver_state_uploads_total",
+            "device free-state uploads by kind (full re-encode vs "
+            "delta scatter)",
+        ).inc(kind=kind)
+        self._count_bytes("state_" + kind, nbytes)
+
+    def _count_bytes(self, kind: str, nbytes: int) -> None:
+        """Count host<->device bytes the engine really moved, by payload
+        kind: state_full (the masked [N, R] rows copied into the resident
+        tensor), state_delta (a delta block, staged or scattered), inputs
+        (an io buffer, less a staged block counted as state_delta), masks
+        (an eligibility table), whatif (a what-if's io buffer) and results
+        (the packed top-k copied back)."""
+        if self.metrics is None or not nbytes:
+            return
+        self.metrics.counter(
+            "grove_solver_transport_bytes_total",
+            "host<->device bytes moved by the engine, by payload kind",
+        ).inc(float(nbytes), kind=kind)
+
     def _count_dispatch_kind(self, kind: str, n: int = 1) -> None:
         """Count `n` device program launches by path kind: `split` counts
         the score program and the standalone delta scatter, `fused` and
         `incremental` one launch a solve (on the card, one graph replay or
         one eager program)."""
-        if n > 0:
-            self._dispatches[kind] = self._dispatches.get(kind, 0) + n
+        if n <= 0:
+            return
+        self._dispatches[kind] = self._dispatches.get(kind, 0) + n
+        if self.metrics is not None:
+            self.metrics.counter(
+                "grove_solver_dispatches_total",
+                "device program launches by solve path kind",
+            ).inc(float(n), kind=kind)
 
     def _kernel_tier(self) -> str:
         """The scoring core's tier in the JAX engine's vocabulary: "xla"
@@ -847,6 +942,12 @@ class PlacementEngine:
 
     def _count_inc_rows(self, rows: int) -> None:
         self._inc_rows_total += rows
+        if self.metrics is not None and rows:
+            self.metrics.counter(
+                "grove_solver_incremental_rows_total",
+                "dirty cost-tensor rows re-scored by the incremental "
+                "re-solve (clean rows ride the device-resident cache)",
+            ).inc(float(rows))
 
     def _score_kw(self, device_commit: bool | None = None) -> dict:
         """The scoring programs' static arguments."""
@@ -1013,11 +1114,23 @@ class PlacementEngine:
         hier_level = self._hier_plan(order)
         if hier_level is not None:
             return self._hier_dispatch(order, free, hier_level, t0)
-        # tracer span "engine.fused" (dispatch=True): item 6a
-        with torch.cuda.stream(self._stream):
+        # the encode of an overlapped solve happens here; the consuming
+        # solve emits only the device and repair side
+        with torch.cuda.stream(self._stream), self.tracer.span(
+            "engine.fused" if self.fused else "engine.encode",
+            gangs=len(order), dispatch=True,
+        ) as dsp:
             epoch = self._sync_free(free, defer=self.fused)
             enc = self._encode_arrays(order)
             token = self._device_begin(enc)
+            if self.fused:
+                lb = self._last_begin
+                dsp.set(
+                    path=lb.get("path"), rows=lb.get("rows"),
+                    kernel=lb.get("kernel", "xla"),
+                    device_commit=bool(lb.get("commit")),
+                    encode_seconds=round(time.perf_counter() - t0, 6),
+                )
         keep_free = not self.state_cache or self.state_verify
         return SolveDispatch(
             engine=self,
@@ -1096,30 +1209,35 @@ class PlacementEngine:
         if not solvable:
             return None
         order = sorted(solvable, key=gang_sort_key)
-        enc = self._encode_arrays(order)
-        # staged-but-unshipped rows (PEEKED, not consumed) + the caller's
-        overlay: dict[int, np.ndarray] = dict(self._staged or {})
-        if free_rows:
-            sched = self.snapshot.schedulable
-            for i, row in free_rows.items():
-                i = int(i)
-                masked = np.asarray(row, np.float32)
-                if not sched[i]:
-                    masked = np.zeros_like(masked)
-                overlay[i] = masked
-        upd = self._update_block(overlay) if overlay else None
-        io, lay = self._build_io(enc, upd)
-        packed, _, _ = programs.fused_score(
-            st.dev.clone(), self._ensure_statics(),
-            self._masks_to_device(enc.sig[2]), self._io_to_device(io), lay,
-            **self._score_kw(device_commit=False),
-        )
-        self._count_dispatch_kind("whatif")
-        if self.pallas_core:
-            self._count_dispatch_kind("pallas")
-        packed = packed.cpu().numpy()
-        k = packed.shape[1] // 2
-        return packed[:, :k], packed[:, k:].astype(np.int32), order
+        with self.tracer.span("engine.whatif", gangs=len(order)) as sp:
+            enc = self._encode_arrays(order)
+            # the staged rows not shipped yet (peeked, not consumed) and
+            # the caller's hypothetical rows
+            overlay: dict[int, np.ndarray] = dict(self._staged or {})
+            if free_rows:
+                sched = self.snapshot.schedulable
+                for i, row in free_rows.items():
+                    i = int(i)
+                    masked = np.asarray(row, np.float32)
+                    if not sched[i]:
+                        masked = np.zeros_like(masked)
+                    overlay[i] = masked
+            upd = self._update_block(overlay) if overlay else None
+            io, lay = self._build_io(enc, upd)
+            packed, _, _ = programs.fused_score(
+                st.dev.clone(), self._ensure_statics(),
+                self._masks_to_device(enc.sig[2]), self._h2d(io), lay,
+                **self._score_kw(device_commit=False),
+            )
+            self._count_dispatch_kind("whatif")
+            if self.pallas_core:
+                self._count_dispatch_kind("pallas")
+            self._count_bytes("whatif", io.nbytes)
+            packed = packed.cpu().numpy()
+            self._count_bytes("results", packed.nbytes)
+            k = packed.shape[1] // 2
+            sp.set(overlay_rows=len(overlay))
+            return packed[:, :k], packed[:, k:].astype(np.int32), order
 
     # -- hierarchical two-level solve (solver/hierarchy.py) ------------------
     def _hier_plan(self, order: list[SolverGang]) -> int | None:
@@ -1182,8 +1300,10 @@ class PlacementEngine:
             # collect half (solve() runs under it), so no tensor is used
             # on one stream and freed on another: none needs record_stream.
             eng._stream = torch.cuda.Stream(eng.device)
-        # (the JAX engine also turns off the sub-engine's decision ring:
-        # item 6a)
+        # the parent records placements and diagnoses at its level; a
+        # sub-engine's ring would count each gang twice. Sub-engines have
+        # no tracer and no metrics either: they run on the wave's threads.
+        eng.decisions = None
         return eng
 
     def _domain_prepare(self, hs, dom: int, members,
@@ -1253,7 +1373,19 @@ class PlacementEngine:
             return {p.gang.name: p for p in shard.last_placed}, []
         res = shard.engine.solve(work.proxies, free=work.sub_free,
                                  dispatch=work.handle)
-        # tracer point "engine.fine_solve" with the sub-solve's split: 6a
+        if self.tracer.enabled:
+            # the fine solve's point on the PARENT tracer, emitted here on
+            # the calling thread in domain order, with the sub-solve's
+            # split, linked to the hierarchical round's causal token
+            self.tracer.point(
+                "engine.fine_solve",
+                domain=work.dom, gangs=len(work.gangs),
+                encode_seconds=round(res.stats.get("encode_seconds", 0.0), 6),
+                device_seconds=round(res.stats.get("device_seconds", 0.0), 6),
+                repair_seconds=round(res.stats.get("repair_seconds", 0.0), 6),
+                **({"causal_link": self._hier_token}
+                   if self._hier_token is not None else {}),
+            )
         free[idx] = work.sub_free
         placed_here: dict[str, GangPlacement] = {}
         failed = []
@@ -1343,17 +1475,54 @@ class PlacementEngine:
         dispatch halves touch disjoint free slices and shard-local state
         only, so placements are bit-equal to solving the domains one at a
         time (workers = 0). Returns the wave's failed (i, gang) pairs.
-        (Tracer span "engine.hier_wave" and the wave metrics: item 6a.)"""
+        The wave's span, histogram and gauge are recorded here, on the
+        calling thread."""
         doms = sorted(groups)
         workers = min(self._wave_workers(), len(doms))
         parallel = workers >= 1 and len(doms) > 1
+        wave_t0 = time.perf_counter()
+        with self.tracer.span("engine.hier_wave", domains=len(doms),
+                              workers=workers if parallel else 0) as wsp:
+            failures, memo_hits = self._wave_body(
+                hs, doms, groups, free, sub_stats, tried, placed_map,
+                fine_walls, workers if parallel else 0)
+            wave_wall = time.perf_counter() - wave_t0
+            wsp.set(wall_seconds=round(wave_wall, 6), memo_hits=memo_hits,
+                    failures=len(failures))
+        sub_stats["hier_waves"] += 1
+        sub_stats["hier_wave_width"] = max(sub_stats["hier_wave_width"],
+                                           float(len(doms)))
+        # max-merged like the width: a trailing single-domain retry wave
+        # must not erase that earlier waves ran in parallel
+        sub_stats["hier_wave_workers"] = max(
+            sub_stats["hier_wave_workers"], float(workers if parallel else 0))
+        if self.metrics is not None:
+            self.metrics.histogram(
+                "grove_solver_hier_wave_seconds",
+                "wall seconds of one hierarchical fine-solve wave "
+                "(dispatch-all + collect-in-order across domains)",
+            ).observe(wave_wall)
+            self.metrics.gauge(
+                "grove_solver_hier_wave_width",
+                "domains in the last hierarchical fine-solve wave",
+            ).set(float(len(doms)))
+        return failures
+
+    def _wave_body(self, hs, doms, groups, free, sub_stats, tried,
+                   placed_map, fine_walls, workers: int):
+        """The wave's fine solves: through the pool when `workers` > 0,
+        else one domain at a time. Returns (failed (i, gang) pairs, memo
+        hits)."""
         failures: list = []
-        if parallel:
+        memo_hits = 0
+        if workers:
             works = [self._domain_prepare(hs, dom, groups[dom], free)
                      for dom in doms]
             pool = self._hier_pool_get(workers)
             for w in works:
-                if not w.memo:
+                if w.memo:
+                    memo_hits += 1
+                else:
                     w.fut = pool.submit(self._domain_dispatch, w, hs.level)
             try:
                 for w in works:
@@ -1393,14 +1562,7 @@ class PlacementEngine:
                     tried[i].add(dom)
                 placed_map.update(placed_here)
                 failures.extend(failed)
-        sub_stats["hier_waves"] += 1
-        sub_stats["hier_wave_width"] = max(sub_stats["hier_wave_width"],
-                                           float(len(doms)))
-        # max-merged like the width: a trailing single-domain retry wave
-        # must not erase that earlier waves ran in parallel
-        sub_stats["hier_wave_workers"] = max(
-            sub_stats["hier_wave_workers"], float(workers if parallel else 0))
-        return failures
+        return failures, memo_hits
 
     def _hier_run(self, order: list[SolverGang], free: np.ndarray,
                   result: SolveResult, level: int):
@@ -1515,11 +1677,24 @@ class PlacementEngine:
         delta. Adoption (the same order by identity, the same free content
         by the epoch or content guard) replays the delta; any staleness
         solves afresh, as on the flat path."""
-        epoch = self._sync_free(free) if self.state_cache else 0
-        free_h = free.copy()
-        stub = SolveResult()
-        placed_map, fallbacks = self._hier_run(order, free_h, stub, level)
-        rows = np.flatnonzero((free_h != free).any(axis=1))
+        if self.tracer.enabled:
+            self._hier_token = next_token()
+        with self.tracer.span(
+            "engine.hierarchical", gangs=len(order), level=level,
+            dispatch=True,
+            **({"causal_emit": self._hier_token}
+               if self._hier_token is not None else {}),
+        ) as hsp:
+            epoch = self._sync_free(free) if self.state_cache else 0
+            free_h = free.copy()
+            stub = SolveResult()
+            placed_map, fallbacks = self._hier_run(order, free_h, stub, level)
+            rows = np.flatnonzero((free_h != free).any(axis=1))
+            hsp.set(
+                fine_solves=int(stub.stats.get("hier_fine_solves", 0)),
+                domains=int(stub.stats.get("hier_domains", 0)),
+                encode_seconds=round(time.perf_counter() - t0, 6),
+            )
         keep_free = not self.state_cache or self.state_verify
         return SolveDispatch(
             engine=self,
@@ -1534,7 +1709,7 @@ class PlacementEngine:
             level=level,
         )
 
-    def _hier_middle(self, order, free, dispatch, result, level):
+    def _hier_middle(self, order, free, dispatch, result, level, span):
         """solve()'s middle phase on the hierarchical path: adopt a
         hierarchical dispatch (replay its recorded free-row delta: the
         epoch guard proved the content basis unchanged) or run the
@@ -1558,8 +1733,19 @@ class PlacementEngine:
             result.stats.update(stats)
             result.stats["encode_seconds"] = dispatch.encode_seconds
             result.stats["dispatch_overlap"] = 1.0
+            span.set(level=level, adopted=True,
+                     fine_solves=stats.get("hier_fine_solves"))
             return placed_map, fallbacks
-        return self._hier_run(order, free, result, level)
+        placed_map, fallbacks = self._hier_run(order, free, result, level)
+        span.set(
+            level=level, adopted=False,
+            domains=int(result.stats["hier_domains"]),
+            pruned_pairs=int(result.stats["hier_pruned_pairs"]),
+            fine_solves=int(result.stats["hier_fine_solves"]),
+            domain_reuse=int(result.stats["hier_domain_reuse"]),
+            fallbacks=fallbacks,
+        )
+        return placed_map, fallbacks
 
     # -- the solve -----------------------------------------------------------
     def solve(
@@ -1588,26 +1774,55 @@ class PlacementEngine:
                 solvable.append(g)
         if not solvable:
             result.wall_seconds = time.perf_counter() - t0
+            self._record(result, gangs)
             return result
         order = sorted(solvable, key=gang_sort_key)
         # Hierarchical two-level path (solver/hierarchy.py), then the same
         # shared tail as the flat path. _hier_plan is a pure function of
         # (order, knobs, static snapshot), so a dispatch and its consuming
-        # solve always take the same path. (Tracer span
-        # "engine.hierarchical" and its causal token: item 6a.)
+        # solve always take the same path.
         hier_level = self._hier_plan(order)
         if hier_level is not None:
-            placed_map, fallbacks = self._hier_middle(order, free, dispatch,
-                                                      result, hier_level)
+            if self.tracer.enabled:
+                self._hier_token = next_token()
+            with self.tracer.span(
+                "engine.hierarchical", gangs=len(order), level=hier_level,
+                **({"causal_emit": self._hier_token}
+                   if self._hier_token is not None else {}),
+            ) as hsp:
+                placed_map, fallbacks = self._hier_middle(
+                    order, free, dispatch, result, hier_level, hsp)
             return self._finish_solve(result, order, placed_map, fallbacks,
-                                      free, t0)
-        with torch.cuda.stream(self._stream):
-            return self._solve_flat(order, free, dispatch, result, t0)
+                                      free, gangs, t0)
+        # span shape: a FUSED engine's encode, device and repair are not
+        # separate dispatches, so they collapse into ONE engine.fused span
+        # carrying the sub-phase walls and the path; split engines keep
+        # the three child spans
+        outer = (self.tracer.span("engine.fused", gangs=len(order))
+                 if self.fused else NOOP_TRACER.span("engine.fused"))
+        with torch.cuda.stream(self._stream), outer as fsp:
+            placed_map, fallbacks, path = self._solve_flat(
+                order, free, dispatch, result, t0,
+                NOOP_TRACER if self.fused else self.tracer)
+            if self.fused:
+                fsp.set(
+                    path=path,
+                    kernel=self._kernel_tier(),
+                    device_commit=self.device_commit,
+                    encode_seconds=round(result.stats["encode_seconds"], 6),
+                    device_seconds=round(result.stats["device_seconds"], 6),
+                    repair_seconds=round(result.stats["repair_seconds"], 6),
+                    fallbacks=fallbacks,
+                    overlapped=bool(result.stats.get("dispatch_overlap")),
+                )
+        return self._finish_solve(result, order, placed_map, fallbacks, free,
+                                  gangs, t0)
 
-    def _solve_flat(self, order, free, dispatch, result, t0) -> SolveResult:
-        """The flat solve's middle and tail: sync, adopt `dispatch` or run
-        the device phase, repair. (Tracer spans "engine.fused" /
-        "engine.encode", "engine.device", "engine.repair": item 6a.)"""
+    def _solve_flat(self, order, free, dispatch, result, t0, inner):
+        """The flat solve's middle: sync, adopt `dispatch` or run the
+        device phase, repair, with the spans engine.encode, engine.device
+        (closed once the packed result has landed) and engine.repair on
+        `inner`. Returns (placed_map, fallbacks, the device phase's path)."""
         # cache on: sync BEFORE the adoption decision, so the O(1) epoch
         # compare equals a content compare and the fresh path reuses the
         # synced state. Cache off: the guard compares content, and the
@@ -1633,34 +1848,52 @@ class PlacementEngine:
             elif dispatch.path == "reused":
                 result.stats["reused"] = 1.0
             t_dev = time.perf_counter()
-            top_val, top_dom = self._device_end(dispatch.token)
+            with inner.span("engine.device", gangs=len(order),
+                            overlapped=True):
+                top_val, top_dom = self._device_end(dispatch.token)
             dispatch.token = None
             result.stats["device_seconds"] = time.perf_counter() - t_dev
+            path = "adopted:" + (dispatch.path or "split")
         else:
             if not self.state_cache:
                 self._sync_free(free)
-            enc = self._encode_arrays(order)
+            with inner.span("engine.encode", gangs=len(order)):
+                enc = self._encode_arrays(order)
             result.stats["encode_seconds"] = time.perf_counter() - t0
             t_dev = time.perf_counter()
-            top_val, top_dom = self._device_phase(enc)
+            with inner.span("engine.device", gangs=len(order),
+                            overlapped=False):
+                top_val, top_dom = self._device_phase(enc)
             result.stats["device_seconds"] = time.perf_counter() - t_dev
-            lb = self._last_begin
-            if lb.get("path") == "incremental":
+            path = self._last_begin.get("path")
+            if path == "incremental":
                 result.stats["incremental"] = 1.0
-                result.stats["incremental_rows"] = float(lb.get("rows", 0))
-            elif lb.get("path") == "reused":
+                result.stats["incremental_rows"] = float(
+                    self._last_begin.get("rows", 0))
+            elif path == "reused":
                 result.stats["reused"] = 1.0
         t_rep = time.perf_counter()
-        placed_map, fallbacks = self._repair(order, top_val, top_dom, free)
+        with inner.span("engine.repair", gangs=len(order)) as rsp:
+            placed_map, fallbacks = self._repair(order, top_val, top_dom,
+                                                 free)
+            rsp.set(fallbacks=fallbacks)
         result.stats["repair_seconds"] = time.perf_counter() - t_rep
-        return self._finish_solve(result, order, placed_map, fallbacks, free,
-                                  t0)
+        return placed_map, fallbacks, path
 
-    def _finish_solve(self, result, order, placed_map, fallbacks, free, t0):
+    def _record(self, result: SolveResult, gangs) -> None:
+        """Feed a finished solve to the metrics and the decision ring."""
+        if self.metrics is not None:
+            record_solve_metrics(self.metrics, result, len(gangs))
+        if self.decisions is not None:
+            self.decisions.record_solve(result, self.snapshot, gangs)
+
+    def _finish_solve(self, result, order, placed_map, fallbacks, free,
+                      gangs, t0):
         """Shared solve tail of the flat and hierarchical paths: declare
-        the rows the repair committed, and attribute every gang placed or
+        the rows the repair committed, attribute every gang placed or
         unplaced (with the memoized structured diagnosis against the
-        residual free matrix). (Metrics and the decision log: item 6a.)"""
+        residual free matrix), and feed the metrics and the decision
+        ring."""
         if self.state_cache and placed_map:
             # the repair committed demand into `free` in place: the engine
             # declares its OWN mutations, so the next sync diffs only the
@@ -1695,6 +1928,7 @@ class PlacementEngine:
             result.unplaced[gang.name] = diag
         result.stats["fallbacks"] = float(fallbacks)
         result.wall_seconds = time.perf_counter() - t0
+        self._record(result, gangs)
         return result
 
     def _repair(self, order, top_val, top_dom, free):
@@ -1735,14 +1969,17 @@ class PlacementEngine:
         """Blocking device scoring: begin + end in one call."""
         return self._device_end(self._device_begin(enc))
 
-    def _io_to_device(self, io: np.ndarray) -> torch.Tensor:
-        """Ship (or reuse, when bit-identical) an io buffer."""
+    def _io_to_device(self, io: np.ndarray, discount: int = 0) -> torch.Tensor:
+        """Ship (or reuse, when bit-identical) an io buffer; `discount`
+        bytes of it (a staged delta block) are counted as state_delta, not
+        as inputs."""
         cached = self._io_cache
         if (cached is not None and cached[0].shape == io.shape
                 and np.array_equal(cached[0], io)):
             return cached[1]
         dev = self._h2d(io)
         self._io_cache = (io, dev)
+        self._count_bytes("inputs", io.nbytes - discount)
         return dev
 
     def _masks_to_device(self, elig_masks: np.ndarray) -> torch.Tensor:
@@ -1755,6 +1992,7 @@ class PlacementEngine:
             return cached[1]
         dev = self._h2d(elig_masks)
         self._masks_cache = (elig_masks, dev)
+        self._count_bytes("masks", elig_masks.nbytes)
         return dev
 
     def _build_io(self, enc: EncodedBacklog, upd: np.ndarray | None = None):
@@ -1824,6 +2062,14 @@ class PlacementEngine:
             return ("reuse",)
         return ("inc", perm, dirty)
 
+    def _count_graph_loads(self, discount: int) -> None:
+        """Count the bytes the last graph run copied into its static
+        inputs (an unchanged io buffer or mask table is not copied)."""
+        loaded = self._graphs.last_loads
+        if loaded["io"]:
+            self._count_bytes("inputs", loaded["io"] - discount)
+        self._count_bytes("masks", loaded["masks"])
+
     def _token(self, packed: torch.Tensor, cache=None) -> DeviceToken:
         """The packed result on its way to the host: on the card a pinned
         buffer of the token's own, filled by a non-blocking copy queued
@@ -1843,6 +2089,8 @@ class PlacementEngine:
         that program is the bucket key's CUDA graph, replayed."""
         upd = self._take_staged()
         io, lay = self._build_io(enc, upd)
+        discount = 0 if upd is None else upd.nbytes
+        self._count_bytes("state_delta", discount)
         elig_masks = enc.sig[2]
         statics = self._ensure_statics()
         kw = self._score_kw()
@@ -1851,10 +2099,11 @@ class PlacementEngine:
             key = (lay, elig_masks.shape[0], kw["tier"], kw["device_commit"])
             packed, value, td = self._graphs.run(
                 key, self._state.dev, statics, io, masks_np, lay, **kw)
+            self._count_graph_loads(discount)
         else:
             packed, value, td = programs.fused_score(
                 self._state.dev, statics, self._masks_to_device(elig_masks),
-                self._io_to_device(io), lay, **kw)
+                self._io_to_device(io, discount), lay, **kw)
         self._count_dispatch_kind("fused")
         self._count_kernel_tiers()
         self._last_begin = {
@@ -1940,12 +2189,16 @@ class PlacementEngine:
             packed, value_new, td_new = self._graphs.run(
                 key, self._state.dev, statics, io, d_masks, lay,
                 cache=(inc.value_dev, inc.td_dev), **kw)
+            self._count_graph_loads(0)
         else:
             masks = statics.ones if d_masks is None else self._h2d(d_masks)
             packed, value_new, td_new = programs.inc_score(
                 self._state.dev, inc.value_dev, inc.td_dev, statics, masks,
                 self._h2d(io), lay, **kw,
             )
+            self._count_bytes("inputs", io.nbytes)
+            if d_masks is not None:
+                self._count_bytes("masks", d_masks.nbytes)
         self._count_dispatch_kind("incremental")
         self._count_kernel_tiers()
         self._count_inc_rows(len(dirty))
@@ -2014,8 +2267,9 @@ class PlacementEngine:
         if token.event is not None:
             token.event.synchronize()
         packed = token.host
-        if isinstance(packed, torch.Tensor):
+        if isinstance(packed, torch.Tensor):  # not the reuse tier's array
             packed = packed.numpy().copy()
+            self._count_bytes("results", packed.nbytes)
         if token.cache is not None and token.cache is self._inc:
             token.cache.packed_host = packed
         token.release()
@@ -2025,7 +2279,8 @@ class PlacementEngine:
     # -- introspection -------------------------------------------------------
     def debug_summary(self) -> dict:
         """Public introspection: engine type, problem shape, whether the
-        static arrays are on the device, and the device free state's
+        static arrays are on the device, the decision ring's occupancy,
+        and the device free state's
         epoch/upload/hit accounting with the launches by path, in the JAX
         engine's keys and tier vocabulary; `fused_graphs` counts the fused
         and incremental programs' graphs (the keys held against the LRU's
@@ -2041,6 +2296,14 @@ class PlacementEngine:
             "num_nodes": self.snapshot.num_nodes,
             "num_domains": self.space.num_domains,
             "device_statics_resident": self._statics is not None,
+            "decisions": (
+                {
+                    "gangs_tracked": len(self.decisions),
+                    "records_total": self.decisions.records_total,
+                }
+                if self.decisions is not None
+                else None
+            ),
             "device_state": {
                 "cache_enabled": self.state_cache,
                 "resident": st.dev is not None,

@@ -67,7 +67,8 @@ _U32 = 0xFFFFFFFF
 _WARP = 32
 
 #: shared memory one block may use on Hopper (227 KB); both commit
-#: kernels keep their residual there
+#: kernels keep their residual there while it fits (`topk_layout`,
+#: `scan_layout`)
 _SMEM_BYTES = 232448
 
 #: the commit top-k kernel keeps a sorted list of up to this many keys per
@@ -81,8 +82,8 @@ _TOPK_WARPS = 512 // _WARP
 _RING_SLOTS, _RING_TILE = 3, 64
 
 _VALUE_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_COMMIT_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_TOPK_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_COMMIT_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_TOPK_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 #: value-kernel precisions and their C entry points
 _VALUE_ENTRY = {"fp32": "grove_value_sig", "bf16": "grove_value_sig_bf16"}
@@ -436,14 +437,89 @@ def kernel_value(dom_free, cnt_fit, dom_level, total_demand, required_level,
 
 
 
+#: bits of the commit kernels' `layout` argument: the residual (both
+#: kernels) and the row (commit top-k) in shared memory; a clear bit puts
+#: it in global memory
+_RESID, _ROW = 1, 2
+
+
+def _topk_smem(d: int, r: int, k: int, layout: int) -> int:
+    """Shared memory the commit top-k kernel asks for: its warps' top-k
+    lists, the residual and the row where `layout` keeps them there, and
+    the gang's demand row."""
+    return _TOPK_WARPS * k * 8 + ((d * r if layout & _RESID else 0)
+                                  + (d if layout & _ROW else 0) + r) * 4
+
+
+def _scan_smem(d: int, r: int, k: int, l1: int, layout: int) -> int:
+    """Shared memory the device-commit kernel asks for: the residual where
+    `layout` keeps it there, and the ring of staged gangs."""
+    return ((d * r if layout & _RESID else 0)
+            + _RING_SLOTS * _RING_TILE * (2 * k + r + k * l1)) * 4
+
+
+def topk_layout(d: int, r: int, k: int, resid_shared=None,
+                row_shared=None) -> int:
+    """The commit top-k kernel's `layout` argument at D domains, R
+    resources and K candidates. Each None keeps its working set in the
+    227 KB of shared memory a block holds while it fits: the residual copy
+    leaves first (D above ~14.4k at R = 3), the row second (D above
+    ~57k). Every layout gives the same bits. Raises ValueError only when
+    the caller asks for shared memory that does not fit. Pure: testable
+    on the CPU."""
+    if resid_shared is None:
+        resid_shared = _topk_smem(d, r, k, _RESID | _ROW) <= _SMEM_BYTES
+    if row_shared is None:
+        row_shared = resid_shared or _topk_smem(d, r, k, _ROW) <= _SMEM_BYTES
+    layout = _RESID * bool(resid_shared) | _ROW * bool(row_shared)
+    smem = _topk_smem(d, r, k, layout)
+    if smem > _SMEM_BYTES:
+        raise ValueError(
+            f"commit top-k kernel asked to keep {'the residual ' * resid_shared}"
+            f"{'the row ' * row_shared}in shared memory at D={d}, R={r}: "
+            f"{smem} bytes, above the {_SMEM_BYTES} a block holds"
+        )
+    return layout
+
+
+def scan_layout(d: int, r: int, k: int, l1: int, resid_shared=None) -> int:
+    """The device-commit kernel's `layout` argument at D domains, R
+    resources, K candidates and L + 1 chain entries. None keeps the
+    residual in shared memory while it fits beside the ring of staged
+    gangs (D up to ~15.6k at L + 1 = 5). Both layouts give the same bits.
+    Raises ValueError when the caller asks for shared memory that does not
+    fit, or when the ring alone does not (R or L + 1 in the hundreds).
+    Pure: testable on the CPU."""
+    if resid_shared is None:
+        resid_shared = _scan_smem(d, r, k, l1, _RESID) <= _SMEM_BYTES
+    layout = _RESID * bool(resid_shared)
+    smem = _scan_smem(d, r, k, l1, layout)
+    if smem > _SMEM_BYTES:
+        raise ValueError(
+            f"commit kernel keeps {'the residual and ' * resid_shared}a ring "
+            f"of {_RING_SLOTS} x {_RING_TILE} staged gangs ({r} resources, "
+            f"{l1} chain entries) in shared memory: {smem} bytes, above the "
+            f"{_SMEM_BYTES} a block holds"
+        )
+    return layout
+
+
 def kernel_commit_topk(value, dom_free, anc_ids, total_demand,
-                       top_k: int, chunk: int):
+                       top_k: int, chunk: int, *, resid_shared=None,
+                       row_shared=None):
     """(top_val [G, K] f32, top_dom [G, K] i32) via csrc/commit_topk.cu
     (the drop-in for `commit_topk_plain`), from the UN-jittered value
     tensor: the kernel adds the tie jitter itself. Plain version for CPU
     tensors; for CUDA tensors, the kernel: one cooperative launch whose
     blocks (one per chunk row, all co-resident) select in parallel and
     commit each chunk, so the residual is the same on every run.
+
+    `resid_shared` / `row_shared` (None: `topk_layout`'s choice) say
+    whether the residual copies and the row live in shared memory; a
+    residual in global memory gets a [blocks, D, R] scratch from
+    `torch.empty` (inside a graph capture, from the graph's pool). Asking
+    for shared memory that does not fit raises ValueError. Every layout
+    gives the same bits; the tests pass them to compare.
 
     Precondition: column j of `anc_ids` holds only domains of level j - 1
     (as `DomainSpace` builds it, and checks). The kernel commits a chunk
@@ -464,13 +540,7 @@ def kernel_commit_topk(value, dom_free, anc_ids, total_demand,
         )
     if r < 1:
         raise ValueError("commit top-k kernel needs at least one resource")
-    smem = _TOPK_WARPS * top_k * 8 + (d * r + d + r) * 4
-    if smem > _SMEM_BYTES:
-        raise ValueError(
-            f"commit top-k kernel keeps a [{d}, {r}] residual, a [{d}] row "
-            f"and its warps' top-k lists in shared memory: {smem} bytes, "
-            f"above the {_SMEM_BYTES} a block holds"
-        )
+    layout = topk_layout(d, r, top_k, resid_shared, row_shared)
     dev = value.device
     f32, i32 = torch.float32, torch.int32
     _check("value", value, f32, (g, d), dev)
@@ -479,24 +549,35 @@ def kernel_commit_topk(value, dom_free, anc_ids, total_demand,
     _check("total_demand", total_demand, f32, (g, r), dev)
     top_val = torch.empty((g, top_k), dtype=f32, device=dev)
     top_dom = torch.empty((g, top_k), dtype=i32, device=dev)
+    scratch = None
+    if not layout & _RESID:
+        scratch = torch.empty((min(chunk, g), d, r), dtype=f32, device=dev)
     fn = load("commit_topk").grove_commit_topk
     fn.argtypes, fn.restype = _TOPK_ARGTYPES, ctypes.c_int
     rc = fn(_ptr(value), _ptr(dom_free), _ptr(anc_ids), _ptr(total_demand),
-            _ptr(top_val), _ptr(top_dom), g, d, r, l1, top_k, chunk,
-            _stream(dev))
+            _ptr(top_val), _ptr(top_dom),
+            None if scratch is None else _ptr(scratch),
+            g, d, r, l1, top_k, chunk, layout, _stream(dev))
     _raise_on(rc, "commit top-k kernel")
-    count_launch("commit_topk")
+    add_launches({"commit_topk": 1,
+                  "commit_topk_global": int(not layout & _RESID)})
     return top_val, top_dom
 
 
 
-def kernel_commit_scan(top_val, top_dom, dom_free, anc_ids, total_demand):
+def kernel_commit_scan(top_val, top_dom, dom_free, anc_ids, total_demand,
+                       *, resid_shared=None):
     """([G, 1] committed value, [G, 1] committed domain) via
     csrc/commit_scan.cu (the drop-in for `device_commit_scan_plain`).
     Plain version for CPU tensors; for CUDA tensors, the kernel: one block
     whose walker warp decrements a chain's cells all at once, which needs
     the chains to name each domain at most once (true of an `anc_ids`
-    built by `DomainSpace`, which checks its columns)."""
+    built by `DomainSpace`, which checks its columns).
+
+    `resid_shared` (None: `scan_layout`'s choice) says whether the
+    residual lives in shared memory or in a [D, R] scratch from
+    `torch.empty`; the ring of staged gangs is always in shared memory.
+    Both layouts give the same bits."""
     if not _launches_kernel(top_val):
         return device_commit_scan_plain(top_val, top_dom, dom_free, anc_ids,
                                         total_demand)
@@ -508,13 +589,7 @@ def kernel_commit_scan(top_val, top_dom, dom_free, anc_ids, total_demand):
             f"commit kernel gives each candidate a lane: 1..{_WARP} "
             f"candidates and at least one resource, got {k} and {r}"
         )
-    smem = (d * r + _RING_SLOTS * _RING_TILE * (2 * k + r + k * l1)) * 4
-    if smem > _SMEM_BYTES:
-        raise ValueError(
-            f"commit kernel keeps the [{d}, {r}] residual and a ring of "
-            f"{_RING_SLOTS} x {_RING_TILE} staged gangs in shared memory: "
-            f"{smem} bytes, above the {_SMEM_BYTES} a block holds"
-        )
+    layout = scan_layout(d, r, k, l1, resid_shared)
     dev = top_val.device
     f32, i32 = torch.float32, torch.int32
     _check("top_val", top_val, f32, (g, k), dev)
@@ -524,13 +599,17 @@ def kernel_commit_scan(top_val, top_dom, dom_free, anc_ids, total_demand):
     _check("total_demand", total_demand, f32, (g, r), dev)
     out_val = torch.empty((g, 1), dtype=f32, device=dev)
     out_dom = torch.empty((g, 1), dtype=i32, device=dev)
+    scratch = None
+    if not layout:
+        scratch = torch.empty((d, r), dtype=f32, device=dev)
     fn = load("commit_scan").grove_commit_scan
     fn.argtypes, fn.restype = _COMMIT_ARGTYPES, ctypes.c_int
     rc = fn(_ptr(top_val), _ptr(top_dom), _ptr(dom_free), _ptr(anc_ids),
             _ptr(total_demand), _ptr(out_val), _ptr(out_dom),
-            g, k, d, r, l1, _stream(dev))
+            None if scratch is None else _ptr(scratch),
+            g, k, d, r, l1, layout, _stream(dev))
     _raise_on(rc, "commit-scan kernel")
-    count_launch("commit_scan")
+    add_launches({"commit_scan": 1, "commit_scan_global": int(not layout)})
     return out_val, out_dom
 
 
@@ -538,7 +617,8 @@ def kernel_commit_scan(top_val, top_dom, dom_free, anc_ids, total_demand):
 #: launches since the last reset by kernel name, the counters' one lock,
 #: and the counts of the capture (if any) that the calling thread runs
 _NAMES = ("value_kernel", "value_kernel_bf16", "value_sig_kernel",
-          "value_sig_kernel_bf16", "commit_topk", "commit_scan")
+          "value_sig_kernel_bf16", "commit_topk", "commit_scan",
+          "commit_topk_global", "commit_scan_global")
 _COUNTS = dict.fromkeys(_NAMES, 0)
 _COUNT_LOCK = threading.Lock()
 _CAPTURING = threading.local()
@@ -550,7 +630,9 @@ def launch_counts() -> dict[str, int]:
     kernel has two entries, each counted where it launches: `value_kernel`
     (`_bf16`) through `kernel_value`, the S = 1 interface, and
     `value_sig_kernel` (`_bf16`) through `kernel_value_sig`, the one the
-    engine calls."""
+    engine calls. Each commit kernel's count takes every launch, and
+    `commit_topk_global` / `commit_scan_global` those of them made with
+    the residual in global memory (`topk_layout`, `scan_layout`)."""
     with _COUNT_LOCK:
         return dict(_COUNTS)
 
@@ -605,6 +687,8 @@ def reset_launches() -> None:
 
 __all__ = [
     "add_launches",
+    "scan_layout",
+    "topk_layout",
     "capture_counts",
     "count_launch",
     "commit_topk_plain",

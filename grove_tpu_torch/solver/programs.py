@@ -427,6 +427,8 @@ class FusedGraphs:
         self.delta_replays = 0
         self.inc_replays = 0
         self.launches: dict[str, int] = {}
+        #: bytes the last `run` copied into static inputs, by kind
+        self.last_loads = {"io": 0, "masks": 0}
 
     def __len__(self):
         return len(self._lru)
@@ -452,6 +454,13 @@ class FusedGraphs:
         dst.copy_(pinned, non_blocking=True)
         return arr.copy()
 
+    def _load_counted(self, dst, host, arr, kind: str) -> np.ndarray:
+        """`_load`, adding the bytes it copied to `last_loads[kind]`."""
+        held = self._load(dst, host, arr)
+        if held is not host:
+            self.last_loads[kind] += arr.nbytes
+        return held
+
     def run(self, key: tuple, free, statics, io_np: np.ndarray,
             masks_np: np.ndarray | None, lay: IoLayout, cache=None, **kw):
         """Replay (capturing first if new) the program of `key` on these
@@ -459,16 +468,18 @@ class FusedGraphs:
         else K5; `masks_np` None means the statics' all-ones row. Returns
         the graph's (packed, value, total_demand)."""
         entry = self._lru.get(key)
+        self.last_loads = {"io": 0, "masks": 0}
         if entry is None:
             entry = self._new_entry(free, statics, io_np, masks_np, lay,
                                     cache)
             self._capture(entry, free, statics, lay, **kw)
             self._lru.put(key, entry)   # may evict the least recent key
         else:
-            entry.io_host = self._load(entry.io, entry.io_host, io_np)
+            entry.io_host = self._load_counted(entry.io, entry.io_host,
+                                               io_np, "io")
             if masks_np is not None:
-                entry.masks_host = self._load(entry.masks, entry.masks_host,
-                                              masks_np)
+                entry.masks_host = self._load_counted(
+                    entry.masks, entry.masks_host, masks_np, "masks")
             if entry.inc:
                 load_cache(entry.value_in, entry.td_in, cache)
             entry.graph.replay()
@@ -489,13 +500,14 @@ class FusedGraphs:
         entry.inc = cache is not None
         entry.io = torch.empty((lay.size,), dtype=torch.float32,
                                device=self.device)
-        entry.io_host = self._load(entry.io, None, io_np)
+        entry.io_host = self._load_counted(entry.io, None, io_np, "io")
         if masks_np is None:
             entry.masks, entry.masks_host = statics[4], None
         else:
             entry.masks = torch.empty(masks_np.shape, dtype=torch.float32,
                                       device=self.device)
-            entry.masks_host = self._load(entry.masks, None, masks_np)
+            entry.masks_host = self._load_counted(entry.masks, None,
+                                                  masks_np, "masks")
         entry.value_in = entry.td_in = None
         if entry.inc:
             entry.value_in = torch.empty_like(cache[0])

@@ -5,21 +5,38 @@ cluster (5000 nodes) with a 3-tier block/rack/host topology: the same
 cluster and backlog as the JAX package's bench.py (`make_cluster`,
 `make_gangs`, and the scale tiers' 4-tier `make_tier_cluster` with its
 block-confined `make_tier_gangs`), copied here so chip_smoke.py needs
-nothing of grove_tpu.
+nothing of grove_tpu. `make_podgangs` writes the stress backlog the way the
+control plane hands it over, as PodGangs with their Pods, optionally with
+node selectors and tolerations against a cluster whose nodes carry taints
+(`make_cluster(..., taint_every=...)`), and `encode_stress_podgangs`
+encodes it with `solver.problem.encode_podgangs`.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .api.meta import ObjectMeta
-from .api.types import Node, TopologyLevel
-from .solver.problem import SolverGang
+from .api.meta import NamespacedName, ObjectMeta
+from .api.podgang import (
+    PodGang,
+    PodGangSpec,
+    PodGroup,
+    TopologyConstraint,
+    TopologyPackConstraint,
+)
+from .api.types import Container, Node, Pod, PodSpec, TopologyLevel
+from .solver.problem import SolverGang, encode_podgangs
 from .topology.encoding import default_cluster_topology, encode_topology
 
 
-def make_cluster(num_nodes: int):
-    """3-tier topology: ~16 racks/block, 16 hosts/rack."""
+#: the taint `make_cluster(taint_every=...)` puts on nodes, and the key a
+#: constrained PodGang backlog tolerates
+TAINT = "maintenance"
+
+
+def make_cluster(num_nodes: int, taint_every: int = 0):
+    """3-tier topology: ~16 racks/block, 16 hosts/rack. `taint_every` > 0
+    taints every taint_every-th node with TAINT (20: 5% of the nodes)."""
     nodes = []
     for i in range(num_nodes):
         b, rem = divmod(i, 256)
@@ -31,6 +48,7 @@ def make_cluster(num_nodes: int):
                     labels={"t/block": f"b{b}", "t/rack": f"b{b}r{r}"},
                 ),
                 allocatable={"cpu": 32.0, "memory": 128.0, "tpu": 8.0},
+                taints=[TAINT] if taint_every and i % taint_every == 0 else [],
             )
         )
     ct = default_cluster_topology(
@@ -144,3 +162,67 @@ def make_gangs(num_gangs: int, grouped: bool = False) -> list[SolverGang]:
                 )
             )
     return gangs
+
+
+def make_podgangs(num_gangs: int, constrained: bool = False,
+                  num_blocks: int = 1):
+    """`make_gangs(num_gangs)` written as the control plane hands it over:
+    (PodGangs, {(namespace, pod name): Pod}). A plain gang packs a block
+    (required) and prefers a rack, one group of 8 pods; a leader/worker
+    gang packs a block with two groups of 4 pods, each packing a rack.
+    Encoded by `encode_stress_podgangs`, the gangs equal make_gangs' field
+    by field. `constrained` puts a node selector (the gang's block among
+    `num_blocks`, by gang index) on one pod in four, pods 0 and 4 of each
+    gang, and a toleration of TAINT on pod 0 of them, half the selected."""
+    block = TopologyConstraint(TopologyPackConstraint(required="t/block",
+                                                      preferred="t/rack"))
+    lw_block = TopologyConstraint(TopologyPackConstraint(required="t/block"))
+    rack = TopologyConstraint(TopologyPackConstraint(required="t/rack"))
+    podgangs, pods = [], {}
+    for i in range(num_gangs):
+        name = f"gang{i:05d}"
+        refs = []
+        for j in range(8):
+            spec = PodSpec(containers=[Container(
+                name="main",
+                resources={"cpu": 4.0, "memory": 16.0, "tpu": 1.0})])
+            if constrained and j % 4 == 0:
+                spec.node_selector = {"t/block": f"b{i % num_blocks}"}
+                if j == 0:
+                    spec.tolerations = [TAINT]
+            pod = Pod(metadata=ObjectMeta(name=f"{name}-p{j}",
+                                          namespace="bench"), spec=spec)
+            pods[("bench", pod.metadata.name)] = pod
+            refs.append(NamespacedName("bench", pod.metadata.name))
+        if i % 4 == 3:
+            groups = [PodGroup("leader", refs[:4], 4, rack),
+                      PodGroup("worker", refs[4:], 4, rack)]
+            gang_tc = lw_block
+        else:
+            groups = [PodGroup("workers", refs, 8)]
+            gang_tc = block
+        podgangs.append(PodGang(
+            metadata=ObjectMeta(name=name, namespace="bench"),
+            spec=PodGangSpec(pod_groups=groups, topology_constraint=gang_tc)))
+    return podgangs, pods
+
+
+def encode_stress_podgangs(snapshot, podgangs, pods) -> list[SolverGang]:
+    """`encode_podgangs` over `make_podgangs`' output: each pod's demand
+    is its containers' requests in the snapshot's resource order, and its
+    node filter its selector and tolerations."""
+    names = snapshot.resource_names
+
+    def pod_demand(namespace, name):
+        pod = pods.get((namespace, name))
+        if pod is None:
+            return None
+        req = pod.spec.total_requests()
+        return np.asarray([req.get(r, 0.0) for r in names], np.float32)
+
+    def pod_scheduling(namespace, name):
+        spec = pods[(namespace, name)].spec
+        return spec.node_selector, spec.tolerations
+
+    return encode_podgangs(podgangs, snapshot, pod_demand,
+                           pod_scheduling=pod_scheduling)

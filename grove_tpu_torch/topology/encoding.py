@@ -1,15 +1,22 @@
 """Encode the cluster topology tree + node inventory as dense arrays.
 
-The counterpart of grove_tpu/topology/encoding.py. The ordered levels plus
-each node's labels are flattened into a (levels x nodes) integer matrix of
-*hierarchical* domain ids, the input format of the batched placement
-solve (one-hot membership matrices, segment sums over domains).
+The counterpart of grove_tpu/topology/encoding.py, copied whole. It
+imports nothing of grove_tpu, so the two packages' objects compare field
+by field.
+
+The reference hands topology to the external KAI scheduler as an ordered list
+of node-label keys (operator/internal/clustertopology/clustertopology.go:
+141-175, KAI Topology CR). grove_tpu instead consumes the same information
+directly: the ordered levels plus each node's labels are flattened into a
+(levels x nodes) integer matrix of *hierarchical* domain ids, which is the
+native input format for a vectorized placement solver (one-hot membership
+matrices, segment sums over domains) on TPU.
 
 Hierarchy is encoded by path, not by raw label value: the domain id of node n
 at level l is the dense id of the tuple (label_0(n), ..., label_l(n)), so two
-racks both labelled "rack-0" under different blocks get distinct ids.
-
-Everything here is host numpy; only the engine's device phase is torch.
+racks both labelled "rack-0" under different blocks get distinct ids —
+matching the semantic strictness the reference's topology design doc requires
+(docs/designs/topology.md:530-541).
 """
 
 from __future__ import annotations
@@ -18,7 +25,6 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..api.meta import ObjectMeta
 from ..api.types import (
     CLUSTER_TOPOLOGY_NAME,
     ClusterTopology,
@@ -28,6 +34,7 @@ from ..api.types import (
     node_ready,
     sort_topology_levels,
 )
+from ..api.meta import ObjectMeta
 from ..api.validation import validate_cluster_topology
 
 #: Label key for the auto-added narrowest level, mirroring the reference's
@@ -71,16 +78,89 @@ class TopologySnapshot:
     capacity: np.ndarray                  # float32 [N, R] allocatable
     free: np.ndarray                      # float32 [N, R] allocatable - used
     schedulable: np.ndarray               # bool [N]
+    #: monotonic free-content stamp (Cluster.topology_snapshot bumps it
+    #: whenever the usage underlying `free` changed since the previous
+    #: snapshot refresh). An unchanged stamp proves the cluster's
+    #: free-delta journal gained no rows, letting the scheduler skip the
+    #: journal drain before a solve (GangScheduler._feed_free_journal —
+    #: the cluster-side half of the solver's device-resident state
+    #: discipline in solver/engine.py _sync_free).
+    free_epoch: int = 0
     node_labels: list[dict] = field(default_factory=list, repr=False)
     node_taints: list[list] = field(default_factory=list, repr=False)
+    _memberships: dict[int, np.ndarray] = field(default_factory=dict, repr=False)
+    _elig_cache: dict = field(default_factory=dict, repr=False)
 
     @property
     def num_levels(self) -> int:
         return int(self.domain_ids.shape[0])
 
     @property
+    def has_taints(self) -> bool:
+        """True when any node carries a taint — then even selector-less pods
+        are constrained (they must avoid tainted nodes they don't tolerate)."""
+        return any(self.node_taints)
+
+    def eligibility(
+        self, node_selector: dict[str, str], tolerations: list[str]
+    ) -> np.ndarray:
+        """bool [N] mask: node i is eligible iff its labels satisfy every
+        node_selector entry and every taint key on it is tolerated.
+
+        The reference embeds full corev1.PodSpec whose selectors/taints the
+        delegated scheduler honors (operator/api/core/v1alpha1/podclique.go:
+        60-63); grove_tpu owns the scheduler, so this mask is the hard
+        filter both solve paths enforce. Masks are cached per (selector,
+        tolerations) signature — pods come from few templates, so the cache
+        stays tiny and shared references keep per-gang memory O(1).
+        """
+        key = (
+            tuple(sorted(node_selector.items())),
+            tuple(sorted(set(tolerations))),
+        )
+        mask = self._elig_cache.get(key)
+        if mask is None:
+            tol = set(tolerations)
+            mask = np.ones(self.num_nodes, dtype=bool)
+            sel = node_selector.items()
+            for i in range(self.num_nodes):
+                labels = self.node_labels[i] if i < len(self.node_labels) else {}
+                taints = self.node_taints[i] if i < len(self.node_taints) else ()
+                if any(labels.get(k) != v for k, v in sel) or any(
+                    t not in tol for t in taints
+                ):
+                    mask[i] = False
+            mask.setflags(write=False)  # shared across gangs
+            self._elig_cache[key] = mask
+        return mask
+
+    @property
     def num_nodes(self) -> int:
         return int(self.domain_ids.shape[1])
+
+    def membership(self, level: int) -> np.ndarray:
+        """One-hot [N, D_level] float32 domain-membership matrix (cached).
+
+        The solver's segment sums over domains are `M.T @ x`; on TPU these
+        become MXU matmuls, which is exactly why the topology is encoded
+        this way rather than as the reference's label-selector tree walk.
+        """
+        if level not in self._memberships:
+            d = int(self.num_domains[level])
+            m = np.zeros((self.num_nodes, d), dtype=np.float32)
+            m[np.arange(self.num_nodes), self.domain_ids[level]] = 1.0
+            self._memberships[level] = m
+        return self._memberships[level]
+
+    def level_index(self, key_or_domain: str, topology: ClusterTopology | None = None) -> int:
+        """Resolve a node-label key (scheduler contract) to a level index."""
+        if key_or_domain in self.level_keys:
+            return self.level_keys.index(key_or_domain)
+        if topology is not None:
+            for i, lv in enumerate(topology.spec.levels):
+                if lv.domain == key_or_domain and lv.key in self.level_keys:
+                    return self.level_keys.index(lv.key)
+        raise KeyError(f"unknown topology level {key_or_domain!r}")
 
     def domains_at(self, level: int) -> int:
         return int(self.num_domains[level])
@@ -99,7 +179,8 @@ def encode_topology(
     level (conservative: they never pack with anything).
 
     The topology is validated on entry (unknown/duplicate domains or keys
-    raise ValidationError).
+    raise ValidationError) so every snapshot downstream of here — and
+    therefore every solve — works on a well-formed hierarchy.
     """
     validate_cluster_topology(topology)
     levels = list(topology.spec.levels)
@@ -153,7 +234,10 @@ def encode_topology(
         for ri, r in enumerate(resource_names):
             capacity[ni, ri] = float(node.allocatable.get(r, 0.0))
         # Candidate-set membership: cordons, deletion marks AND the
-        # lifecycle Ready condition.
+        # lifecycle Ready condition. NotReady nodes (heartbeat lost,
+        # domain outage, stabilizing after a flap) are excluded here, and
+        # `schedulable` is what every solve path keys its node candidates
+        # on — so displaced gangs can only repair onto healthy domains.
         schedulable[ni] = (
             not node.unschedulable
             and node.metadata.deletion_timestamp is None
@@ -181,7 +265,12 @@ def encode_topology(
 def apply_usage(
     snapshot: TopologySnapshot, usage: dict[str, dict[str, float]]
 ) -> None:
-    """Refresh snapshot.free = capacity - usage in place."""
+    """Refresh snapshot.free = capacity - usage in place. The ONE home of
+    the free-capacity accounting: the fresh encode above and the cluster's
+    cached-snapshot refresh (cluster.py topology_snapshot) both call it,
+    so usage semantics cannot silently diverge between cache hit and
+    miss. Also bounds the snapshot's eligibility-mask cache, which lives
+    as long as the (cached) snapshot does."""
     np.copyto(snapshot.free, snapshot.capacity)
     if usage:
         res_index = {r: i for i, r in enumerate(snapshot.resource_names)}
@@ -193,3 +282,5 @@ def apply_usage(
                 ri = res_index.get(r)
                 if ri is not None:
                     snapshot.free[ni, ri] -= amount
+    if len(snapshot._elig_cache) > 1024:
+        snapshot._elig_cache.clear()

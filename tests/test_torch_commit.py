@@ -18,8 +18,16 @@ to a single level (the precondition that makes the two orders agree) for
 the port's and the JAX package's `DomainSpace` at 2, 3 and 4 tiers and at
 the stress cluster. Tolerance: none (assert_array_equal). The CUDA
 kernels are held against these plain versions on the card by
-chip_smoke.py.
+chip_smoke.py. Fault P3: `topk_layout` / `scan_layout` keep each
+kernel's working set in shared memory while it fits and move it to a
+global scratch past that (checked at D = 5334, 21335 and 100000, and at
+the thresholds), an
+explicit layout that does not fit raises, the wrappers on CPU tensors run
+their plain versions whatever layout is asked for, and the C entry points
+take the scratch pointer and the layout int the wrappers pass.
 """
+
+import ctypes
 
 import jax
 import jax.numpy as jnp
@@ -55,6 +63,7 @@ from grove_tpu_torch.solver.kernel_core import (
     kernel_commit_topk,
     launch_counts,
 )
+from grove_tpu_torch.solver import kernel_core as kc
 
 
 _jitted_commit_scan = jax.jit(_jax_commit_scan, static_argnames=("top_k", "chunk"))
@@ -447,3 +456,108 @@ def test_kernel_probe_patches_apply(kernel):
              else kernel_probe.probe_scan)
     out = patch(src)
     assert out.count("g_probe[") >= 2 and out.count("PT(") >= 3
+
+
+# -- fault P3: the commit kernels' layouts -------------------------------------
+
+#: D -> (commit top-k layout, device-commit layout) at R = 3, K = 8,
+#: L + 1 = 4, as the kernels' `layout` bits (1: the residual in shared
+#: memory, 2: K2's row): the stress shape keeps every working set in shared
+#: memory; the hier 20k tier's flat shape moves both residuals to global
+#: memory; at 100k domains K2's row goes too
+P3_SHAPES = {
+    5334: (kc._RESID | kc._ROW, kc._RESID),
+    21335: (kc._ROW, 0),
+    100000: (0, 0),
+}
+
+
+@pytest.mark.parametrize("d", list(P3_SHAPES))
+def test_commit_layout_by_domain_count(d):
+    """The layout choice at the stress shape, the flat 20k shape and 100k
+    domains, and the shared bytes it asks for within the 227 KB a block
+    holds; the wrappers' layout resolution raises no ValueError there."""
+    topk, scan = kc.topk_layout(d, 3, 8), kc.scan_layout(d, 3, 8, 4)
+    assert (topk, scan) == P3_SHAPES[d]
+    assert kc._topk_smem(d, 3, 8, topk) <= kc._SMEM_BYTES
+    assert kc._scan_smem(d, 3, 8, 4, scan) <= kc._SMEM_BYTES
+    # an explicit request for what the choice gives changes nothing
+    assert kc.topk_layout(d, 3, 8, bool(topk & kc._RESID),
+                          bool(topk & kc._ROW)) == topk
+    assert kc.scan_layout(d, 3, 8, 4, bool(scan)) == scan
+    # every smaller layout is asked for explicitly without error
+    assert kc.topk_layout(d, 3, 8, False, False) == 0
+    assert kc.scan_layout(d, 3, 8, 4, False) == 0
+
+
+def test_commit_layout_thresholds():
+    """The switch points: K2's residual leaves shared memory past ~14.4k
+    domains at R = 3 and its row past ~57k; K3's residual past ~15.6k at
+    L + 1 = 5 (fault P3's caps, now layout switches)."""
+    def last_shared(pred):
+        lo, hi = 1, 200_000
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            lo, hi = (mid, hi) if pred(mid) else (lo, mid - 1)
+        return lo
+
+    assert 14_000 < last_shared(
+        lambda d: kc.topk_layout(d, 3, 8) & kc._RESID) < 14_600
+    assert 57_000 < last_shared(
+        lambda d: kc.topk_layout(d, 3, 8) & kc._ROW) < 58_000
+    assert 15_000 < last_shared(lambda d: kc.scan_layout(d, 3, 8, 5)) < 16_000
+
+
+def test_commit_layout_refuses_shared_memory_that_does_not_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        kc.topk_layout(21335, 3, 8, resid_shared=True)
+    with pytest.raises(ValueError, match="shared memory"):
+        kc.topk_layout(100000, 3, 8, row_shared=True)
+    with pytest.raises(ValueError, match="shared memory"):
+        kc.scan_layout(21335, 3, 8, 4, resid_shared=True)
+    # the ring of staged gangs alone must fit
+    with pytest.raises(ValueError, match="ring"):
+        kc.scan_layout(10, 3, 32, 200)
+
+
+@pytest.mark.parametrize("d", [5334, 21335])
+def test_commit_wrappers_on_the_cpu_at_p3_shapes(d):
+    """On CPU tensors both wrappers run their plain versions at any D,
+    whatever layout is asked for (the layout is a kernel argument only)."""
+    rng = np.random.default_rng(d)
+    g, r, l1, k = 40, 3, 4, 8
+    space_levels = np.repeat(np.arange(-1, l1 - 1), -(-d // l1))[:d]
+    anc = np.full((d, l1), d, np.int32)
+    for j in range(l1):
+        rows = np.flatnonzero(space_levels == j - 1)
+        anc[rows, j] = rows
+    args = (torch.from_numpy(rng.uniform(-1.0, 9.0, (g, d)).astype(np.float32)),
+            torch.from_numpy(rng.uniform(0.0, 8.0, (d, r)).astype(np.float32)),
+            torch.from_numpy(anc),
+            torch.from_numpy(rng.uniform(0.0, 2.0, (g, r)).astype(np.float32)))
+    want = kc.commit_topk_plain(*args, k, 32)
+    got = kc.kernel_commit_topk(*args, k, 32, resid_shared=False,
+                                row_shared=False)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    scan = kc.kernel_commit_scan(*want, *args[1:], resid_shared=False)
+    ref = kc.device_commit_scan_plain(*want, *args[1:])
+    assert all(torch.equal(a, b) for a, b in zip(scan, ref))
+
+
+@pytest.mark.parametrize("kernel,entry,argtypes", [
+    ("commit_topk", "grove_commit_topk", kc._TOPK_ARGTYPES),
+    ("commit_scan", "grove_commit_scan", kc._COMMIT_ARGTYPES),
+])
+def test_commit_entry_points_take_scratch_and_layout(kernel, entry, argtypes):
+    """The C entry points' parameters (pointers, then ints, then the
+    stream) match the ctypes argtypes the wrappers set, scratch pointer
+    and layout int included."""
+    import re
+    from grove_tpu_torch.build import PACKAGE_DIR, SOURCES
+
+    src = (PACKAGE_DIR / SOURCES[kernel]).read_text()
+    params = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", src)
+    kinds = ["ptr" if "*" in p else "int" for p in params.group(1).split(",")]
+    want = ["ptr" if t is ctypes.c_void_p else "int" for t in argtypes]
+    assert kinds == want
+    assert "int layout" in params.group(1) and "scratch" in params.group(1)

@@ -193,7 +193,9 @@ def test_launch_counters_reset():
     assert launch_counts() == {"value_kernel": 0, "value_kernel_bf16": 0,
                                "value_sig_kernel": 0,
                                "value_sig_kernel_bf16": 0,
-                               "commit_topk": 0, "commit_scan": 0}
+                               "commit_topk": 0, "commit_scan": 0,
+                               "commit_topk_global": 0,
+                               "commit_scan_global": 0}
 
 
 def _sig_inputs(seed, g, d, u, s, r=3, n=48, templates=None):
