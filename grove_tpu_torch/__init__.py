@@ -12,8 +12,12 @@ use), the hierarchical two-level solve, the workload API (`api`:
 PodCliqueSet, PodGang, validation and defaulting) with the encode of
 PodGangs into the solver's gangs (`solver.encode_podgangs`), and the
 observability the engine reports into (`observability`: metrics, the
-span tracer, the decision log). Its entry points run on the card unless
-the caller passes device="cpu".
+span tracer, the decision log), and the control plane below the workload
+controllers: the operator configuration (`api.config`), the object store
+with its native clone, the simulated kubelet, `cluster.Cluster`, the
+controller runtime and the gang scheduler (`controller.GangScheduler`),
+with `serving` and `tenancy`. Its entry points run on the card unless the
+caller passes device="cpu".
 """
 
 # .solver before .native: the engine imports native, which imports solver

@@ -1,8 +1,7 @@
 """Workload + scheduler-contract API surface of grove_tpu_torch.
 
 The counterpart of grove_tpu/api/__init__.py. It exports the same names
-except the operator configuration (`api/config.py`), which arrives with
-the control plane, and adds `NodeStatus`."""
+and adds `NodeStatus`."""
 
 from . import constants, naming
 from .defaulting import default_podcliqueset, default_podgang
@@ -73,4 +72,19 @@ from .validation import (
     validate_podcliqueset_update,
     validate_podgang,
 )
+from .config import (
+    AuthorizationConfig,
+    AutoscalerConfig,
+    ControllerConfig,
+    LogConfig,
+    OperatorConfig,
+    ServingConfig,
+    SolverConfig,
+    TenancyConfig,
+    TopologyAwareSchedulingConfig,
+    WorkloadDefaultsConfig,
+    load_operator_config,
+    validate_operator_config,
+)
+
 __all__ = [name for name in dir() if not name.startswith("_")]

@@ -10,12 +10,22 @@ package never imports grove_tpu:
 
 Arrays are copied; per-pod eligibility masks are passed through as the
 same objects, because the engine dedupes masks by identity.
+
+The control plane's inputs are API objects (Node, Pod, PodGang,
+ClusterTopology, PriorityClass, an OperatorConfig) or config dicts;
+`api_object` carries any of them into this package's classes:
+
+    nodes = [api_object(n) for n in jax_nodes]
 """
 
 from __future__ import annotations
 
+import dataclasses
+import enum
+
 import numpy as np
 
+from .api import auxiliary, config, meta, podgang, types
 from .observability.explain import UnsatCode, UnsatDiagnosis
 from .solver.problem import SolverGang
 from .topology.encoding import TopologySnapshot
@@ -98,3 +108,44 @@ def gang_from_arrays(
         unschedulable_reason=_reason(unschedulable_reason),
         pod_elig=None if pod_elig is None else list(pod_elig),
     )
+
+
+def _api_classes() -> dict[str, type]:
+    """This package's API dataclasses and enums by class name (the names
+    are unique across its API modules)."""
+    out = {}
+    for mod in (meta, types, podgang, auxiliary, config):
+        for name, obj in vars(mod).items():
+            if (isinstance(obj, type) and obj.__module__ == mod.__name__
+                    and (dataclasses.is_dataclass(obj)
+                         or issubclass(obj, enum.Enum))):
+                out[name] = obj
+    return out
+
+
+_API_CLASSES = _api_classes()
+
+
+def api_object(obj):
+    """`obj` as this package's object: a dataclass becomes the class of
+    the same name in this package's `api`, built from its fields by name
+    (each carried across in turn); an enum member becomes the member of
+    the same value; dicts, lists and tuples are copied with their items
+    carried across; numpy arrays are copied; other values pass through.
+    A config dict comes back as a dict, ready for
+    `api.config.load_operator_config`."""
+    if isinstance(obj, enum.Enum):
+        return _API_CLASSES[type(obj).__name__](obj.value)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        cls = _API_CLASSES[type(obj).__name__]
+        return cls(**{f.name: api_object(getattr(obj, f.name))
+                      for f in dataclasses.fields(obj)})
+    if isinstance(obj, dict):
+        return {api_object(k): api_object(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [api_object(v) for v in obj]
+    if isinstance(obj, tuple):
+        return tuple(api_object(v) for v in obj)
+    if isinstance(obj, np.ndarray):
+        return obj.copy()
+    return obj

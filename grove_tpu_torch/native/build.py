@@ -59,26 +59,32 @@ def library_path() -> Path:
     return BUILD_DIR / f"libserial_scorer-{digest[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the library if it is missing; returns its path. Raises
-    RuntimeError with the compiler's output if the build fails."""
-    out = library_path()
+def compile_shared(source: Path, out: Path, flags, what: str) -> Path:
+    """Compile `source` with g++ and `flags` into `out` unless it exists;
+    returns `out`. Raises RuntimeError with the compiler's output if the
+    build fails."""
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [CXX, *CXX_FLAGS, str(SOURCE), "-o", str(tmp)]
+    cmd = [CXX, *flags, str(source), "-o", str(tmp)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     except (OSError, subprocess.SubprocessError) as exc:
-        raise RuntimeError(f"native repair build failed: {exc}") from exc
+        raise RuntimeError(f"{what} build failed: {exc}") from exc
     if proc.returncode != 0:
         raise RuntimeError(
-            f"native repair build failed ({' '.join(cmd)}):\n"
+            f"{what} build failed ({' '.join(cmd)}):\n"
             f"{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
+
+
+def build() -> Path:
+    """Compile the library if it is missing; returns its path. Raises
+    RuntimeError with the compiler's output if the build fails."""
+    return compile_shared(SOURCE, library_path(), CXX_FLAGS, "native repair")
 
 
 def load_library() -> ctypes.CDLL:

@@ -1,11 +1,12 @@
-"""Observability the placement engine reports into: the metrics
-registry, the span tracer and the decision log with its unsat diagnosis.
+"""Observability: the metrics registry, the span tracer, the decision
+log with its unsat diagnosis, the event recorder and the structured
+logger.
 
-The counterpart of grove_tpu/observability/__init__.py. The event
-recorder and the structured logger belong to the cluster and the
-controllers, and the SLO engine to the service layer; they arrive with
-them.
+The counterpart of grove_tpu/observability/__init__.py. The SLO engine
+belongs to the service layer and arrives with it.
 """
+
+from .events import ClusterEvent, EventRecorder
 
 from .explain import (
     DecisionLog,
@@ -17,15 +18,19 @@ from .explain import (
     unsat_code,
     unsat_preemptible,
 )
+from .logging import Logger
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry
 from .tracing import NOOP_TRACER, Span, Tracer
 
 __all__ = [
+    "ClusterEvent",
     "Counter",
     "DecisionLog",
     "DecisionRecord",
     "Gauge",
+    "EventRecorder",
     "Histogram",
+    "Logger",
     "MetricsRegistry",
     "NOOP_TRACER",
     "Span",

@@ -656,6 +656,36 @@ class PlacementEngine:
         # invalidate means "trust nothing resident"
         self._hier = None
 
+    def release(self) -> None:
+        """Free what the engine holds on the card now, not when the
+        garbage collector gets to it: its CUDA graphs with their private
+        pool, the resident free tensor, the device statics, the input
+        caches, the hierarchy's sub-engines (each released) and the wave's
+        thread pool. The scheduler calls it on the engine it replaces when
+        a snapshot's static encoding changes. A later solve on a released
+        engine uploads and captures anew, as a new engine would."""
+        if self._hier is not None:
+            for shard in self._hier.shards.values():
+                if shard.engine is not None:
+                    shard.engine.release()
+                    shard.engine = None
+        self.invalidate_device_state()
+        self._statics = None
+        self._free_buf = None
+        self._io_cache = None
+        self._masks_cache = None
+        if self._hier_pool is not None:
+            self._hier_pool.shutdown(wait=False)
+            self._hier_pool = None
+            self._hier_pool_size = 0
+        if self._graphs is not None:
+            self._graphs = type(self._graphs)(
+                self.device, _weak_method(self._graph_evicted))
+            # a dropped graph's private pool goes back to the driver only
+            # when the allocator releases its cached blocks
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+
     def _graph_evicted(self, _key, entry) -> None:
         """A captured graph is being dropped from the LRU: an incremental
         cache that points into its outputs must not outlive it, so drop

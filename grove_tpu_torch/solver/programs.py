@@ -317,6 +317,26 @@ _CAPTURE_STREAMS: dict = {}
 _CAPTURE_PRIORITY = -1
 
 
+#: graph replays since the last reset, over every engine of the process,
+#: by program ("K5" the fused, "K6" the incremental): what a caller that
+#: does not hold the engines (the scheduler builds and replaces its own)
+#: reads, as kernel_core's launch counters are read; under one lock
+_REPLAYS = {"K5": 0, "K6": 0}
+_REPLAY_LOCK = threading.Lock()
+
+
+def replay_counts() -> dict[str, int]:
+    """Graph replays since the last reset, by program."""
+    with _REPLAY_LOCK:
+        return dict(_REPLAYS)
+
+
+def reset_replays() -> None:
+    """Set both programs' replay counts to 0."""
+    with _REPLAY_LOCK:
+        _REPLAYS.update(K5=0, K6=0)
+
+
 def load_cache(value_in: torch.Tensor, td_in: torch.Tensor, cache) -> int:
     """Copy the incremental cache (value [Gc, D], demand [Gc, R]) into
     K6's static inputs on the current stream, each copy skipped where the
@@ -485,6 +505,8 @@ class FusedGraphs:
             entry.graph.replay()
         kc.add_launches(entry.launches)
         self.replays += 1
+        with _REPLAY_LOCK:
+            _REPLAYS["K6" if entry.inc else "K5"] += 1
         if entry.inc:
             self.inc_replays += 1
         else:

@@ -1,7 +1,9 @@
 """The stress configuration of the placement solve, built from this package.
 
 A backlog of 8-pod gangs (1000 at full size) over a kwok-style simulated
-cluster (5000 nodes) with a 3-tier block/rack/host topology: the same
+cluster (5000 nodes, `stress_inventory` as Node objects and a
+ClusterTopology, `make_cluster` as its snapshot) with a 3-tier
+block/rack/host topology: the same
 cluster and backlog as the JAX package's bench.py (`make_cluster`,
 `make_gangs`, and the scale tiers' 4-tier `make_tier_cluster` with its
 block-confined `make_tier_gangs`), copied here so chip_smoke.py needs
@@ -34,9 +36,11 @@ from .topology.encoding import default_cluster_topology, encode_topology
 TAINT = "maintenance"
 
 
-def make_cluster(num_nodes: int, taint_every: int = 0):
-    """3-tier topology: ~16 racks/block, 16 hosts/rack. `taint_every` > 0
-    taints every taint_every-th node with TAINT (20: 5% of the nodes)."""
+def stress_inventory(num_nodes: int, taint_every: int = 0):
+    """The stress cluster as the control plane holds it: (Node list,
+    ClusterTopology). 3-tier topology: ~16 racks/block, 16 hosts/rack.
+    `taint_every` > 0 taints every taint_every-th node with TAINT (20: 5%
+    of the nodes)."""
     nodes = []
     for i in range(num_nodes):
         b, rem = divmod(i, 256)
@@ -57,6 +61,13 @@ def make_cluster(num_nodes: int, taint_every: int = 0):
             TopologyLevel(domain="rack", key="t/rack"),
         ]
     )
+    return nodes, ct
+
+
+def make_cluster(num_nodes: int, taint_every: int = 0):
+    """The stress cluster's topology snapshot (`stress_inventory`
+    encoded)."""
+    nodes, ct = stress_inventory(num_nodes, taint_every)
     return encode_topology(ct, nodes)
 
 
@@ -165,7 +176,7 @@ def make_gangs(num_gangs: int, grouped: bool = False) -> list[SolverGang]:
 
 
 def make_podgangs(num_gangs: int, constrained: bool = False,
-                  num_blocks: int = 1):
+                  num_blocks: int = 1, start: int = 0):
     """`make_gangs(num_gangs)` written as the control plane hands it over:
     (PodGangs, {(namespace, pod name): Pod}). A plain gang packs a block
     (required) and prefers a rack, one group of 8 pods; a leader/worker
@@ -179,7 +190,7 @@ def make_podgangs(num_gangs: int, constrained: bool = False,
     lw_block = TopologyConstraint(TopologyPackConstraint(required="t/block"))
     rack = TopologyConstraint(TopologyPackConstraint(required="t/rack"))
     podgangs, pods = [], {}
-    for i in range(num_gangs):
+    for i in range(start, start + num_gangs):
         name = f"gang{i:05d}"
         refs = []
         for j in range(8):
