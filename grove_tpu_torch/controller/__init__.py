@@ -1,12 +1,13 @@
-"""Controller runtime and the gang scheduler.
+"""Reconcilers + controller runtime (the operator's control plane).
 
-The counterpart of grove_tpu/controller/__init__.py, less the `Harness`
-and the workload controllers it builds (ROADMAP item 6b-ii): PodGangs
-and their ungated Pods go in, and `GangScheduler` hands back bindings,
-conditions, events, metrics and decisions.
+The counterpart of grove_tpu/controller/__init__.py, with `GangScheduler`
+exported beside `Harness`: a `Harness` with no `device` solves on the CUDA
+card, `device="cpu"` runs the kernels' plain versions.
 """
 
 from .runtime import ControllerManager, Reconciler, Request, Result
 from .scheduler import GangScheduler
+from .harness import Harness
 
-__all__ = ["ControllerManager", "GangScheduler", "Reconciler", "Request", "Result"]
+__all__ = ["ControllerManager", "GangScheduler", "Harness", "Reconciler",
+           "Request", "Result"]

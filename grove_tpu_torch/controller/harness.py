@@ -1,0 +1,331 @@
+"""Harness: cluster + all controllers + kubelet wired into one loop.
+
+The user/test entry point equivalent to running the operator binary against
+a cluster (operator/cmd/main.go): register the three reconcilers + the gang
+scheduler on the manager, then settle() drives controllers and kubelet to a
+fixpoint. advance() moves the virtual clock (firing requeues like the gang
+termination timer) and re-settles.
+
+The counterpart of grove_tpu/controller/harness.py. The gang scheduler's
+engine solves on the CUDA card unless the harness is built with
+device="cpu". Recovery from durable state (`recover`, `cold_restart`), the
+standby failover (`promote_standby`), federation (`adopt_workloads`), the
+SLO engine (`slo_sweep`, `maybe_slo_sweep`, `slo_scorecard`) and the
+sharded control plane (`config.controllers.shards > 1`) are not ported yet
+(ROADMAP item 8): each raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from itertools import count as _count
+
+from ..api.config import OperatorConfig, load_operator_config
+from ..api.types import Node, PodCliqueSet
+from ..cluster.cluster import Cluster
+from ..cluster.store import not_ported
+from .podclique import PodCliqueReconciler
+from .podcliqueset import PodCliqueSetReconciler
+from .podcliquescalinggroup import PCSGReconciler
+from .runtime import ControllerManager
+from .scheduler import GangScheduler
+
+_replica_counter = _count()
+
+
+class Harness:
+    def __init__(self, nodes: list[Node] | None = None,
+                 cluster: Cluster | None = None, engine_cls=None,
+                 config: OperatorConfig | dict | None = None,
+                 cell_name: str | None = None, device=None):
+        """config: an OperatorConfig, or a plain dict decoded+validated
+        through api.config.load_operator_config (the --config YAML analog,
+        cmd/cli/cli.go:89-106). Ignored when an existing cluster (which owns
+        its config) is passed.
+
+        cell_name: a plain label naming this harness as a member cluster
+        (federation itself is not ported yet).
+
+        device: where the gang scheduler's engine solves. None is the CUDA
+        card (the scheduler raises where there is none, so the harness is
+        never built); "cpu" runs the kernels' plain versions."""
+        if isinstance(config, dict):
+            config = load_operator_config(config)
+        self.cell_name = cell_name
+        self.device = device
+        self.cluster = cluster or Cluster(nodes=nodes, config=config)
+        self.config = self.cluster.config
+        self.store = self.cluster.store
+        self.clock = self.cluster.clock
+        self.kubelet = self.cluster.kubelet
+        elector = None
+        if self.config.leader_election.enabled:
+            from .leaderelection import LeaderElector
+
+            le = self.config.leader_election
+            # each manager instance is its own replica identity
+            elector = LeaderElector(
+                self.store,
+                identity=(
+                    f"{self.config.authorization.operator_identity}"
+                    f"#{next(_replica_counter)}"
+                ),
+                lease_name=le.lease_name,
+                namespace=le.lease_namespace,
+                lease_duration_seconds=le.lease_duration_seconds,
+            )
+        self.elector = elector
+        self._engine_cls = engine_cls
+        self._build_manager()
+
+    def _make_manager(self, name: str, elector=None):
+        """Build ONE fully registered ControllerManager + reconciler set
+        over the shared store — the single-replica manager and every
+        sharded worker replica are each one of these. Returns
+        (manager, components) with the named reconciler instances."""
+        cc = self.config.controllers
+        manager = ControllerManager(
+            self.store,
+            identity=self.config.authorization.operator_identity,
+            error_backoff_base_seconds=cc.error_backoff_base_seconds,
+            error_backoff_max_seconds=cc.error_backoff_max_seconds,
+            error_retry_budget=cc.error_retry_budget,
+            logger=self.cluster.logger.with_name(name),
+            metrics=self.cluster.metrics,
+            elector=elector,
+            # re-read on every (re)build: the chaos harness enables
+            # tracing after Cluster construction, and a crash-restarted
+            # manager must keep feeding the same flight recorder
+            tracer=self.cluster.tracer,
+            round_write_batching=cc.round_write_batching,
+        )
+        manager.register(
+            PodCliqueSetReconciler(self.store, config=self.config)
+        )
+        manager.register(PCSGReconciler(self.store))
+        manager.register(
+            PodCliqueReconciler(
+                self.store, retry_seconds=cc.sync_retry_interval_seconds
+            )
+        )
+        kwargs = {"engine_cls": self._engine_cls} if self._engine_cls else {}
+        scheduler = GangScheduler(self.cluster, device=self.device, **kwargs)
+        manager.register(scheduler)
+        from .autoscaler import Autoscaler
+
+        autoscaler = Autoscaler(self.cluster)
+        manager.register(autoscaler)
+        # the defragmenter is timer-driven (Harness.maybe_defrag), not
+        # watch-driven, so it is not registered with the manager; it is
+        # built next to the scheduler because the what-ifs ride that
+        # scheduler's engine (device-resident state) and migrations
+        # execute through its ticket/eviction machinery
+        from .defrag import DefragController
+
+        defrag = DefragController(self.cluster, scheduler)
+        # node lifecycle last: its writes (Ready flips, eviction sweeps,
+        # drain evictions) land as events for the next round's workload
+        # controllers, and a crash-restart rebuilds its stabilization
+        # state conservatively like every other in-memory cache
+        node_monitor = None
+        if self.config.controllers.node_monitor_enabled:
+            from .nodemonitor import NodeMonitor
+
+            node_monitor = NodeMonitor(self.cluster)
+            manager.register(node_monitor)
+        return manager, {
+            "scheduler": scheduler,
+            "autoscaler": autoscaler,
+            "defrag": defrag,
+            "node_monitor": node_monitor,
+        }
+
+    def _build_manager(self) -> None:
+        """(Re)build the manager + a fresh set of reconcilers over the
+        SAME store: a new manager starts with event cursor 0 (replaying,
+        or relisting past a compaction horizon) and reconcilers rebuild
+        every in-memory cache from the store, exactly like a restarted
+        operator binary. The horizontally sharded control plane
+        (controllers.shards > 1) is not ported yet."""
+        cc = self.config.controllers
+        if cc.shards > 1:
+            raise not_ported("config.controllers.shards > 1 (the sharded "
+                             "control plane)")
+        self.manager, comps = self._make_manager(
+            "manager", elector=self.elector
+        )
+        self.scheduler = comps["scheduler"]
+        self.autoscaler = comps["autoscaler"]
+        self.defrag = comps["defrag"]
+        self.node_monitor = comps["node_monitor"]
+
+    @classmethod
+    def recover(cls, config: OperatorConfig | dict, engine_cls=None,
+                device=None) -> "Harness":
+        """Boot a new process from durable state: not ported yet."""
+        raise not_ported("Harness.recover (the durable store)")
+
+    def cold_restart(self) -> dict:
+        """Whole-process crash-restart from durable state: not ported
+        yet."""
+        raise not_ported("Harness.cold_restart (the durable store)")
+
+    def promote_standby(self, catch_up: bool = True,
+                        force: bool = False) -> dict:
+        """Failover to the log-shipping standby: not ported yet."""
+        raise not_ported("Harness.promote_standby (HA replication)")
+
+    def autoscale_sweep(self) -> bool:
+        """The HPA sweep ALONE, no settle — the chaos loop interleaves
+        it with faulted manager rounds (a settle mid-storm could blow the
+        round budget on transient faults). The sweep mutates managed
+        scale targets, so it runs as the operator identity like any
+        reconcile — and, under HA, only on the replica holding the lease
+        (a standby sweeping would be split-brain). Returns whether the
+        sweep ran."""
+        if self.elector is not None:
+            with self.store.impersonate(
+                self.manager.identity or self.store.actor
+            ):
+                if not self.elector.try_acquire():
+                    return False  # standing by: the leader sweeps
+        with self.store.impersonate(self.manager.identity or self.store.actor):
+            self.autoscaler.run_all()
+        return True
+
+    def autoscale(self) -> None:
+        """One periodic HPA sweep + settle (the HPA sync interval)."""
+        self.autoscale_sweep()
+        self.settle()
+
+    def maybe_autoscale(self, settle: bool = True) -> bool:
+        """The periodic HPA sync: sweep (+ settle) when at least
+        `autoscaler.sync_interval_seconds` of virtual time passed since
+        the last sweep. Serving loops (bench.py --diurnal, the chaos
+        loop) call this every step so the HPA cadence is governed by the
+        validated config, not by the loop's step size. Returns whether
+        a sweep ran — an HA standby's skipped sweep returns False and
+        pays no settle. settle=False leaves convergence to the caller's
+        own manager rounds (the chaos storm's posture)."""
+        if (
+            self.clock.now() - self.autoscaler.last_sync
+            < self.config.autoscaler.sync_interval_seconds
+        ):
+            return False
+        if not self.autoscale_sweep():
+            return False  # standing by: the leader sweeps
+        if settle:
+            self.settle()
+        return True
+
+    def defrag_sweep(self, storm: bool = False):
+        """One defragmentation sweep, no settle (the chaos loop
+        interleaves it with faulted manager rounds). Runs as the
+        operator identity like any reconcile and, under HA, only on the
+        leader. Returns the sweep stats dict, or None when defrag is
+        disabled or this replica is standing by."""
+        if not self.config.defrag.enabled:
+            return None
+        if self.elector is not None:
+            with self.store.impersonate(
+                self.manager.identity or self.store.actor
+            ):
+                if not self.elector.try_acquire():
+                    return None  # standing by: the leader sweeps
+        with self.store.impersonate(
+            self.manager.identity or self.store.actor
+        ):
+            return self.defrag.sweep(storm=storm)
+
+    def maybe_defrag(self, settle: bool = True) -> bool:
+        """The periodic defrag sync: sweep (+ settle, which re-places
+        evicted gangs onto their held destinations) when at least
+        `defrag.sync_interval_seconds` of virtual time passed since the
+        last sweep. Long-run loops (bench.py --defrag, the chaos
+        loop) call this every step so the cadence is governed by the
+        validated config, not the loop's step size."""
+        cfg = self.config.defrag
+        if not cfg.enabled:
+            return False
+        stream = getattr(self.scheduler, "stream", None)
+        if stream is not None and stream.defrag_suspended:
+            # brownout L2 (the streaming front, not ported: always None
+            # here): defrag evictions feed
+            # the very backlog the stream is shedding — hold sweeps (and
+            # their cadence clock) until the queue drains below the
+            # ladder
+            return False
+        if (
+            self.clock.now() - self.defrag.last_sync
+            < cfg.sync_interval_seconds
+        ):
+            return False
+        if self.defrag_sweep() is None:
+            return False
+        if settle:
+            self.settle()
+        return True
+
+    def slo_sweep(self, store=None):
+        """One SLO evaluation sweep: not ported yet."""
+        raise not_ported("Harness.slo_sweep (the SLO engine)")
+
+    def maybe_slo_sweep(self, store=None) -> bool:
+        """The periodic SLO sync: not ported yet."""
+        raise not_ported("Harness.maybe_slo_sweep (the SLO engine)")
+
+    def slo_scorecard(self) -> dict:
+        """The per-tenant SLO scorecard: not ported yet."""
+        raise not_ported("Harness.slo_scorecard (the SLO engine)")
+
+    def apply(self, pcs: PodCliqueSet):
+        return self.store.create(pcs)
+
+    def adopt_workloads(self, sets: list[PodCliqueSet],
+                        source: str | None = None) -> list[PodCliqueSet]:
+        """Federation's drain entry point: not ported yet."""
+        raise not_ported("Harness.adopt_workloads (federation)")
+
+    def settle(self, max_rounds: int | None = None) -> None:
+        """Controllers + kubelet to fixpoint: reconcile until quiescent,
+        tick the kubelet, repeat until neither produces changes."""
+        max_rounds = max_rounds or self.config.controllers.harness_max_rounds
+        inner = self.config.controllers.settle_max_rounds
+        for _ in range(max_rounds):
+            self.manager.settle(inner)
+            if self.kubelet.tick() == 0:
+                # one more manager pass in case final kubelet writes queued
+                self.manager.settle(inner)
+                if self.kubelet.tick() == 0:
+                    return
+        raise RuntimeError("harness did not settle")
+
+    def compact_events(self) -> int:
+        """Long-run hygiene: drop store events every live consumer has
+        already drained — the manager, the kubelet, and the cluster's
+        incremental usage accounting each keep a watch cursor, and the
+        safe horizon is the MINIMUM of them (compacting past any one
+        would force it into a relist). Steady-state simulations (the
+        churn benchmark, long soaks) call this periodically so the
+        append-only log stays bounded; one-shot tests that inspect
+        history simply don't. Returns the number of events dropped."""
+        horizon = min(
+            self.manager.event_cursor,
+            self.kubelet.event_cursor,
+            self.cluster.usage_cursor,
+        )
+        return self.store.compact_events(horizon)
+
+    def debug_dump(self) -> dict:
+        """Runtime introspection (the pprof-dump analog; SURVEY §5):
+        per-controller reconcile stats + queue depths + store counts +
+        scheduler/engine cache state as one JSON-able dict. See
+        observability/debug.py and docs/operations.md."""
+        from ..observability.debug import harness_dump
+
+        return harness_dump(self)
+
+    def advance(self, seconds: float) -> None:
+        """Advance the virtual clock past timers (gang termination,
+        scheduler retries) and settle."""
+        self.clock.advance(seconds)
+        self.settle()

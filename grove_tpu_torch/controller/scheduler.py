@@ -55,6 +55,7 @@ from ..observability.explain import (
 )
 from ..observability.tracing import accepts_kwarg, accepts_tracer_kwarg
 from ..solver import PlacementEngine, SolverGang, encode_podgangs
+from ..solver.engine import resolve_device
 from ..solver.problem import (
     UNRESOLVED_LEVEL,
     _resolve_level,
@@ -92,9 +93,9 @@ class GangScheduler:
     def __init__(self, cluster: Cluster, engine_cls=PlacementEngine,
                  device=None):
         """`device` is where the engine solves: None is the CUDA card
-        (the engine raises where there is none), "cpu" runs the kernels'
-        plain versions. It is passed to `engine_cls` when that takes a
-        `device` keyword."""
+        (raises here where there is none), "cpu" runs the kernels' plain
+        versions. It is checked and passed to `engine_cls` when that takes
+        a `device` keyword."""
         self.cluster = cluster
         self.store = cluster.store
         self.engine_cls = engine_cls
@@ -114,6 +115,9 @@ class GangScheduler:
             metrics=cluster.metrics,
         )
         if accepts_kwarg(engine_cls, "device"):
+            # checked now: a scheduler for a missing card fails where it
+            # is built, not in a reconcile the manager catches and retries
+            resolve_device(device)
             self._engine_kwargs["device"] = device
         # device-resident free-state knobs, each gated like the tracer: a
         # strict-signature custom engine runs without the capability

@@ -1,10 +1,11 @@
 """Placement explainability: structured unsat diagnosis, score
 decomposition, and the scheduler decision audit log.
 
-The counterpart of grove_tpu/observability/explain.py without its CLI
-(`_demo_harness` and `main` drive the control plane's Harness, which the
-port does not have yet). It imports nothing of grove_tpu, so the two
-packages' objects compare field by field.
+The counterpart of grove_tpu/observability/explain.py, its CLI included
+(`python -m grove_tpu_torch.observability.explain`); the CLI's demo runs
+its Harness on the CUDA card unless `--device cpu` is given. It imports
+nothing of grove_tpu, so the two packages' objects compare field by
+field.
 
 The reference's scheduling contract is an opaque handoff — a PodGang is
 Scheduled or carries a one-line unschedulable string (the score semantics
@@ -767,3 +768,161 @@ def render_verdict(entry: dict) -> str:
     if len(records) > 1:
         lines.append(f"  ({len(records)} recorded decisions; newest shown)")
     return "\n".join(lines)
+
+
+# -- CLI ---------------------------------------------------------------------
+
+_DEMOS = ("capacity", "topology", "cordon", "eligibility")
+
+
+def _demo_harness(scenario: str, seed: int, device=None):
+    """A self-contained seeded unsat scenario through the REAL control
+    plane (Harness + scheduler + engine), returning the settled harness.
+    The seed perturbs the demand so repeated runs exercise different
+    shortfalls deterministically. `device` is the engine's (None: the
+    CUDA card)."""
+    from ..api.meta import ObjectMeta
+    from ..api.types import (
+        Container,
+        PodCliqueSet,
+        PodCliqueSetSpec,
+        PodCliqueSetTemplateSpec,
+        PodCliqueSpec,
+        PodCliqueTemplateSpec,
+        PodSpec,
+        TopologyConstraintSpec,
+        TopologyPackConstraintSpec,
+    )
+    from ..cluster import make_nodes
+    from ..controller import Harness
+
+    selector = None
+    constraint = None
+    if scenario == "capacity":
+        # 2 nodes x 4 cpu = 8 free; 3 pods of (3 + seed%3) cpu demand
+        # 9/12/15 — always an aggregate-capacity verdict, with the
+        # shortfall varying by seed
+        node_count, cpu = 2, 3.0 + (seed % 3)
+    else:
+        # capacity must NOT be the binding stage for the other demos:
+        # pods of (1 + seed%3) cpu always fit a 4-cpu node
+        node_count, cpu = 4, 1.0 + (seed % 3)
+    if scenario == "eligibility":
+        selector = {"accel": "v9"}  # no node carries the label
+    nodes = make_nodes(node_count, allocatable={"cpu": 4.0, "memory": 8.0,
+                                                "tpu": 0.0})
+    h = Harness(nodes=nodes, device=device)
+    if scenario == "cordon":
+        for n in nodes:
+            h.cluster.cordon(n.metadata.name)
+    if scenario == "topology":
+        constraint = TopologyConstraintSpec(
+            pack_constraint=TopologyPackConstraintSpec(required="zone")
+        )
+    pcs = PodCliqueSet(
+        metadata=ObjectMeta(name=f"demo-{scenario}"),
+        spec=PodCliqueSetSpec(
+            replicas=1,
+            template=PodCliqueSetTemplateSpec(
+                cliques=[
+                    PodCliqueTemplateSpec(
+                        name="w",
+                        spec=PodCliqueSpec(
+                            replicas=3,
+                            pod_spec=PodSpec(
+                                containers=[
+                                    Container(
+                                        name="main",
+                                        resources={"cpu": float(cpu)},
+                                    )
+                                ],
+                                node_selector=selector or {},
+                            ),
+                        ),
+                    )
+                ],
+            ),
+        ),
+    )
+    if constraint is not None:
+        pcs.spec.template.topology_constraint = constraint
+    h.apply(pcs)
+    h.settle()
+    return h
+
+
+def main(argv=None) -> int:
+    """Render placement verdicts from a dump file or a seeded demo
+    scenario — the shell entry point of the "Why is my gang pending?"
+    runbook (docs/observability.md)."""
+    import argparse
+    import json
+
+    ap = argparse.ArgumentParser(
+        description="explain grove placement decisions: why a gang is "
+        "pending (reason code + elimination funnel + binding resource) "
+        "or why it landed where it did (score decomposition)"
+    )
+    ap.add_argument("input", nargs="?", default=None,
+                    help="JSON dump: harness debug_dump(), its 'explain' "
+                    "section, a chaos explain dump, or one explain() entry")
+    ap.add_argument("--gang", default=None, metavar="[NS/]NAME",
+                    help="only render this gang")
+    ap.add_argument("--demo", choices=_DEMOS, default=None,
+                    help="run a seeded unsat scenario through the real "
+                    "control plane and explain it")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="demo seed (perturbs the demand)")
+    ap.add_argument("--json", action="store_true",
+                    help="emit raw JSON instead of rendered verdicts")
+    ap.add_argument("--device", default=None,
+                    help="where the demo's engine solves: the CUDA card "
+                    "unless 'cpu' (the kernels' plain versions)")
+    args = ap.parse_args(argv)
+
+    if args.demo is not None:
+        h = _demo_harness(args.demo, args.seed, device=args.device)
+        explain = h.debug_dump().get("explain", {})
+    elif args.input is not None:
+        with open(args.input) as fh:
+            data = json.load(fh)
+        # accept a full debug dump, its explain section, a chaos explain
+        # dump ({gang: explain-entry}), or one explain() entry
+        explain = data.get("explain", data) if isinstance(data, dict) else {}
+    else:
+        ap.error("pass a dump path or --demo")
+        return 2
+
+    entries: list[dict] = []
+    if "records" in explain:       # a single explain() entry
+        entries = [explain]
+    elif "unplaced" in explain:    # DecisionLog.summary()
+        entries = [
+            {"gang": name, "records": [rec]}
+            for name, rec in sorted(explain["unplaced"].items())
+        ]
+    else:                          # {gang: explain-entry} map
+        entries = [
+            v for v in explain.values()
+            if isinstance(v, dict) and "records" in v
+        ]
+    if args.gang:
+        want = args.gang
+        entries = [
+            e for e in entries
+            if e.get("gang") in (want, f"default/{want}")
+            or str(e.get("gang", "")).endswith(f"/{want}")
+        ]
+    if not entries:
+        print("no matching decision records")
+        return 1
+    if args.json:
+        print(json.dumps(entries, indent=2))
+        return 0
+    for entry in entries:
+        print(render_verdict(entry))
+    return 0
+
+
+if __name__ == "__main__":  # pragma: no cover - thin CLI
+    raise SystemExit(main())

@@ -1216,11 +1216,12 @@ class PlacementEngine:
         """Rank candidate domains for `gangs` against the DEVICE-RESIDENT
         free state, the defragmenter's what-if: the value kernel and the
         commit top-k (never the device commit: the caller reads the whole
-        top-k) on a COPY of the resident state with the staged rows and the
-        caller's hypothetical rows laid over it. The resident tensor, the
-        mirror, the epoch, the staged rows and the incremental cache stay
-        as they are (no graph replays: a graph writes the resident state),
-        and the launch counts as "whatif".
+        top-k) on a copy of the resident state with the staged rows and the
+        caller's hypothetical rows laid over it (`programs.fused_score` on
+        the copy; on the card one CUDA graph per bucket key, in the cache
+        that holds K5 and K6). The resident tensor, the mirror, the epoch,
+        the staged rows and the incremental cache stay as they are, and
+        the launch counts as "whatif".
 
         `free` (the current free matrix) is synced first through the
         staged delta path; `free_rows` ({node row -> hypothetical row
@@ -1254,11 +1255,19 @@ class PlacementEngine:
                     overlay[i] = masked
             upd = self._update_block(overlay) if overlay else None
             io, lay = self._build_io(enc, upd)
-            packed, _, _ = programs.fused_score(
-                st.dev.clone(), self._ensure_statics(),
-                self._masks_to_device(enc.sig[2]), self._h2d(io), lay,
-                **self._score_kw(device_commit=False),
-            )
+            elig_masks = enc.sig[2]
+            statics = self._ensure_statics()
+            kw = self._score_kw(device_commit=False)
+            if self._graphs is not None:
+                masks_np = None if elig_masks.shape[0] == 1 else elig_masks
+                key = ("whatif", lay, elig_masks.shape[0], kw["tier"], False)
+                packed = self._graphs.run(key, st.dev, statics, io, masks_np,
+                                          lay, whatif=True, **kw)[0]
+            else:
+                packed = programs.fused_score(
+                    st.dev.clone(), statics,
+                    self._masks_to_device(elig_masks), self._h2d(io), lay,
+                    **kw)[0]
             self._count_dispatch_kind("whatif")
             if self.pallas_core:
                 self._count_dispatch_kind("pallas")
@@ -2374,6 +2383,8 @@ class PlacementEngine:
                 "replays": 0 if graphs is None else graphs.replays,
                 "delta_replays": 0 if graphs is None else graphs.delta_replays,
                 "inc_replays": 0 if graphs is None else graphs.inc_replays,
+                "whatif_replays": (0 if graphs is None
+                                   else graphs.whatif_replays),
                 "launches": {} if graphs is None else dict(graphs.launches),
             },
             # the hierarchical solve: the coarse pass's pruning and the

@@ -15,6 +15,11 @@ The counterparts of the jitted programs of grove_tpu/solver/engine.py:
   a CUDA graph per incremental bucket key too, reading the cache from
   static inputs it is copied into before each replay (`load_cache`).
 - `scatter_rows` (K7) -- `_scatter_rows_impl` (:549): the delta update.
+- the what-if program -- the non-donated `_fused_score` launch of
+  `whatif_scores` (:1441): `fused_score` on a copy of the resident free
+  state (the overlay rows scattered into the copy), so the resident state
+  is only read. On the card it is a CUDA graph per bucket key in the same
+  cache as K5 and K6, copying into a static scratch tensor.
 
 The resident free state is one [N + 1, R] f32 tensor: row N absorbs the
 padding index N of a delta block (JAX's `mode="drop"`), and every product
@@ -318,10 +323,13 @@ _CAPTURE_PRIORITY = -1
 
 
 #: graph replays since the last reset, over every engine of the process,
-#: by program ("K5" the fused, "K6" the incremental): what a caller that
-#: does not hold the engines (the scheduler builds and replaces its own)
-#: reads, as kernel_core's launch counters are read; under one lock
-_REPLAYS = {"K5": 0, "K6": 0}
+#: by program ("K5" the fused, "K6" the incremental, "whatif" the
+#: defragmenter's what-if): what a caller that does not hold the engines
+#: (the scheduler builds and replaces its own) reads, as kernel_core's
+#: launch counters are read; under one lock
+_REPLAYS = {"K5": 0, "K6": 0, "whatif": 0}
+#: graph captures since the last reset, by program, counted alike
+_CAPTURES = {"K5": 0, "K6": 0, "whatif": 0}
 _REPLAY_LOCK = threading.Lock()
 
 
@@ -331,10 +339,17 @@ def replay_counts() -> dict[str, int]:
         return dict(_REPLAYS)
 
 
-def reset_replays() -> None:
-    """Set both programs' replay counts to 0."""
+def capture_counts() -> dict[str, int]:
+    """Graph captures since the last reset, by program."""
     with _REPLAY_LOCK:
-        _REPLAYS.update(K5=0, K6=0)
+        return dict(_CAPTURES)
+
+
+def reset_replays() -> None:
+    """Set every program's replay and capture counts to 0."""
+    with _REPLAY_LOCK:
+        for counts in (_REPLAYS, _CAPTURES):
+            counts.update(K5=0, K6=0, whatif=0)
 
 
 def load_cache(value_in: torch.Tensor, td_in: torch.Tensor, cache) -> int:
@@ -399,25 +414,36 @@ class _Captured:
     makes."""
 
     __slots__ = ("graph", "io", "io_host", "masks", "masks_host", "value_in",
-                 "td_in", "outs", "launches", "inc")
+                 "td_in", "scratch", "outs", "launches", "inc")
+
+    @property
+    def program(self) -> str:
+        """The replay counters' name of the program: K5, K6 or whatif."""
+        if self.inc:
+            return "K6"
+        return "K5" if self.scratch is None else "whatif"
 
 
 class FusedGraphs:
-    """The fused program K5 and the incremental program K6 as one CUDA
-    graph per bucket key, on the card, within one bounded LRU (GRAPH_KEYS)
-    and one memory pool per engine.
+    """The fused program K5, the incremental program K6 and the what-if
+    program as one CUDA graph per bucket key, on the card, within one
+    bounded LRU (GRAPH_KEYS) and one memory pool per engine.
 
     Keys: K5 (layout -- G, S, U, T and the delta block's K --, the
     eligibility-mask table's rows, precision tier, device commit); K6
     ("inc", layout -- G, the dirty rows, R, S, U, T --, the cache's rows
-    Gc, the mask table's rows, tier, device commit): the counterparts of
-    jit's one program per static shape. The first solve of a key runs the
-    program once eagerly, then captures it; every later solve copies its
-    io buffer (and a changed mask table) into the graph's static inputs,
-    K6 also the current cache into its static value and demand inputs
-    (`load_cache`), and replays. K6 gathers from those inputs and writes
-    fresh outputs, never into what it reads. A failed capture or replay raises:
-    there is no eager fallback.
+    Gc, the mask table's rows, tier, device commit); what-if ("whatif",
+    then K5's key with device commit False): the counterparts of jit's
+    one program per static shape. A what-if graph copies the resident
+    free tensor into a static scratch tensor of its own and scores the
+    copy (`fused_score`), so it never writes the resident state.
+
+    The first solve of a key runs the program once eagerly, then captures
+    it; every later solve copies its io buffer (and a changed mask table)
+    into the graph's static inputs, K6 also the current cache into its
+    static value and demand inputs (`load_cache`), and replays. K6 gathers
+    from those inputs and writes fresh outputs, never into what it reads.
+    A failed capture or replay raises: there is no eager fallback.
 
     The graphs point at the engine's resident free tensor and device
     statics, which the engine never reallocates, and write their outputs
@@ -439,13 +465,14 @@ class FusedGraphs:
         self.device = device
         self.pool = torch.cuda.graph_pool_handle()
         self._lru = GraphLru(GRAPH_KEYS, on_evict)
-        #: graphs captured, replays run, replays that carried a delta
-        #: block, K6 replays, and the kernel launches of the replays by
-        #: kernel name
+        #: graphs captured, replays run, K5 replays that carried a delta
+        #: block, K6 replays, what-if replays, and the kernel launches of
+        #: the replays by kernel name
         self.captures = 0
         self.replays = 0
         self.delta_replays = 0
         self.inc_replays = 0
+        self.whatif_replays = 0
         self.launches: dict[str, int] = {}
         #: bytes the last `run` copied into static inputs, by kind
         self.last_loads = {"io": 0, "masks": 0}
@@ -482,17 +509,21 @@ class FusedGraphs:
         return held
 
     def run(self, key: tuple, free, statics, io_np: np.ndarray,
-            masks_np: np.ndarray | None, lay: IoLayout, cache=None, **kw):
+            masks_np: np.ndarray | None, lay: IoLayout, cache=None,
+            whatif: bool = False, **kw):
         """Replay (capturing first if new) the program of `key` on these
         inputs: K6 when `cache` (its value and demand tensors) is given,
-        else K5; `masks_np` None means the statics' all-ones row. Returns
-        the graph's (packed, value, total_demand)."""
+        the what-if program when `whatif`, else K5; `masks_np` None means
+        the statics' all-ones row. Returns the graph's (packed, value,
+        total_demand)."""
         entry = self._lru.get(key)
         self.last_loads = {"io": 0, "masks": 0}
         if entry is None:
             entry = self._new_entry(free, statics, io_np, masks_np, lay,
-                                    cache)
+                                    cache, whatif)
             self._capture(entry, free, statics, lay, **kw)
+            with _REPLAY_LOCK:
+                _CAPTURES[entry.program] += 1
             self._lru.put(key, entry)   # may evict the least recent key
         else:
             entry.io_host = self._load_counted(entry.io, entry.io_host,
@@ -505,21 +536,27 @@ class FusedGraphs:
             entry.graph.replay()
         kc.add_launches(entry.launches)
         self.replays += 1
+        program = entry.program
         with _REPLAY_LOCK:
-            _REPLAYS["K6" if entry.inc else "K5"] += 1
-        if entry.inc:
+            _REPLAYS[program] += 1
+        if program == "K6":
             self.inc_replays += 1
+        elif program == "whatif":
+            self.whatif_replays += 1
         else:
             self.delta_replays += bool(lay.offsets["upd"][1])
         for name, n in entry.launches.items():
             self.launches[name] = self.launches.get(name, 0) + n
         return entry.outs
 
-    def _new_entry(self, free, statics, io_np, masks_np, lay, cache):
-        """A key's static inputs, allocated outside the pool (so no graph's
+    def _new_entry(self, free, statics, io_np, masks_np, lay, cache,
+                   whatif: bool = False):
+        """A key's static inputs (a what-if's scratch copy of the free
+        state among them), allocated outside the pool (so no graph's
         scratch ever lands on them) and filled."""
         entry = _Captured()
         entry.inc = cache is not None
+        entry.scratch = torch.empty_like(free) if whatif else None
         entry.io = torch.empty((lay.size,), dtype=torch.float32,
                                device=self.device)
         entry.io_host = self._load_counted(entry.io, None, io_np, "io")
@@ -541,6 +578,9 @@ class FusedGraphs:
         if entry.inc:
             return inc_score(free, entry.value_in, entry.td_in, statics,
                              entry.masks, entry.io, lay, **kw)
+        if entry.scratch is not None:
+            # the what-if: score a copy, never the resident state
+            free = entry.scratch.copy_(free)
         return fused_score(free, statics, entry.masks, entry.io, lay, **kw)
 
     def _capture(self, entry, free, statics, lay, **kw):
