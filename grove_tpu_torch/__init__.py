@@ -16,8 +16,13 @@ span tracer, the decision log), and the control plane below the workload
 controllers: the operator configuration (`api.config`), the object store
 with its native clone, the simulated kubelet, `cluster.Cluster`, the
 controller runtime and the gang scheduler (`controller.GangScheduler`),
-with `serving` and `tenancy`. Its entry points run on the card unless the
-caller passes device="cpu".
+with `serving` and `tenancy`; the workload controllers and the operator's
+`controller.Harness`; the mesh-sharded engine on `torch.distributed`
+(`parallel`: `initialize_multihost`, `make_solver_mesh`,
+`ShardedPlacementEngine`, one process a device); and the streaming
+admission front (`streaming.StreamFront`, built by the gang scheduler
+where `config.stream.enabled` is set). Its entry points run on the card
+unless the caller passes device="cpu".
 """
 
 # .solver before .native: the engine imports native, which imports solver

@@ -323,7 +323,7 @@ class DefragConfig:
 
 @dataclass
 class StreamConfig:
-    """Streaming admission→solve front (streaming/, not ported yet): replaces
+    """Streaming admission→solve front (streaming/): replaces
     round-draining with SLO-aware micro-batches. Each arriving gang gets
     a deadline budget of `slo_seconds`; a batching window closes when the
     oldest waiter's remaining budget says so (or `max_batch_gangs` hits),

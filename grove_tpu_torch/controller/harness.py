@@ -248,8 +248,7 @@ class Harness:
             return False
         stream = getattr(self.scheduler, "stream", None)
         if stream is not None and stream.defrag_suspended:
-            # brownout L2 (the streaming front, not ported: always None
-            # here): defrag evictions feed
+            # brownout L2 (the streaming front): defrag evictions feed
             # the very backlog the stream is shedding — hold sweeps (and
             # their cadence clock) until the queue drains below the
             # ladder

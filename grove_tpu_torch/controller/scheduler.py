@@ -20,13 +20,11 @@ same round.
 
 The counterpart of grove_tpu/controller/scheduler.py. Its engine is the
 port's PlacementEngine, on the CUDA card unless the scheduler is built with
-device="cpu". Three things differ from the reference: a pending pre_round
+device="cpu". Two things differ from the reference: a pending pre_round
 dispatch that nobody consumed is cancelled before pre_round drops it (the
 reference drops it uncancelled); an engine replaced because the snapshot's
 static encoding changed releases its card memory at once
-(`PlacementEngine.release`); and the streaming admission front
-(`config.stream`) is not ported yet, so enabling it raises
-NotImplementedError (ROADMAP item 8).
+(`PlacementEngine.release`).
 """
 
 from __future__ import annotations
@@ -41,7 +39,7 @@ from ..api.meta import get_condition, set_condition
 from ..api.podgang import PodGang, PodGangConditionType, PodGangPhase
 from ..api.types import ClusterTopology, Node, Pod, PodPhase
 from ..cluster.cluster import Cluster
-from ..cluster.store import Event, clone, not_ported
+from ..cluster.store import Event, clone
 from ..observability.events import (
     EventRecorder,
     REASON_PODGANG_SCHEDULED,
@@ -195,14 +193,21 @@ class GangScheduler:
         #: None when the cluster predates it (custom test fixtures);
         #: every hook below checks enabled
         self.tenancy = getattr(cluster, "tenancy", None)
-        #: streaming admission front: None keeps the classic
-        #: round-draining contract, and is all there is until the front is
-        #: ported (ROADMAP item 8); the branches that read it stay so the
-        #: round matches the reference's
+        #: streaming admission front (grove_tpu_torch/streaming): None
+        #: keeps the classic round-draining contract. Owned by the
+        #: scheduler instance: its queue is SOFT state, so a manager
+        #: crash-restart rebuilds it empty and pending gangs re-register
+        #: with fresh deadlines on the next scan (conservative, never a
+        #: lost gang).
         self.stream = None
         stream_cfg = getattr(cfg, "stream", None)
         if stream_cfg is not None and stream_cfg.enabled:
-            raise not_ported("config.stream (the streaming admission front)")
+            from ..streaming import StreamFront
+
+            self.stream = StreamFront(
+                stream_cfg, cluster.store.clock, metrics=cluster.metrics,
+                tenancy=self.tenancy,
+            )
         #: fairness kwarg gates, same capability pattern as the
         #: device-state knobs: the DRF weight vector is only passed to
         #: solve/dispatch when the engine's signature takes it — a
@@ -845,9 +850,9 @@ class GangScheduler:
             max(0.0, self.store.clock.now() - oldest_pending)
             if oldest_pending is not None else 0.0
         )
-        # streaming admission (not ported: self.stream is None): partition the
-        # backlog into this round's micro-batch, the waiters whose
-        # window is still open, and the sheds — the AUTHORITATIVE plan
+        # streaming admission: partition the backlog into this round's
+        # micro-batch, the waiters whose window is still open, and the
+        # sheds — the AUTHORITATIVE plan
         # (same instant, same keys => same partition as pre_round's
         # speculative call, so dispatch adoption still works). Sheds are
         # stamped immediately: a round that admits nothing must still

@@ -768,19 +768,36 @@ class PlacementEngine:
             )
         return self._statics
 
-    def _upload_full(self, free: np.ndarray, masked: np.ndarray | None) -> int:
-        st = self._state
-        if masked is None:
-            masked = self._masked_free(free)
+    def _state_put(self, masked: np.ndarray) -> torch.Tensor:
+        """Copy the masked free matrix [N, R] into the resident tensor
+        [N + 1, R] and return it (override point: the mesh engine keeps
+        its node block only)."""
         n, r = masked.shape
         if self._free_buf is None:
             self._free_buf = torch.zeros((n + 1, r), dtype=torch.float32,
                                          device=self.device)
         # into the one resident tensor, never a new one: graphs point at it
+        self._free_buf[:n].copy_(torch.from_numpy(masked))
+        return self._free_buf
+
+    def _state_delta(self, upd: np.ndarray) -> None:
+        """Scatter a delta block [K, 1+R] into the resident tensor in
+        place, as its own launch (override point: the mesh engine routes
+        each row to the shard that owns it)."""
+        programs.scatter_rows(self._state.dev, self._h2d(upd))
+
+    def _state_rows(self) -> tuple[int, int]:
+        """The node rows [lo, hi) the resident tensor holds: all of them
+        here; the mesh engine's node block there."""
+        return 0, self.snapshot.num_nodes
+
+    def _upload_full(self, free: np.ndarray, masked: np.ndarray | None) -> int:
+        st = self._state
+        if masked is None:
+            masked = self._masked_free(free)
         with self.tracer.span("engine.delta_apply", kind="full",
                               rows=masked.shape[0], epoch=st.epoch + 1):
-            self._free_buf[:n].copy_(torch.from_numpy(masked))
-        st.dev = self._free_buf
+            st.dev = self._state_put(masked)
         st.mirror = masked if self.state_cache else None
         st.epoch += 1
         st.full_uploads += 1
@@ -855,7 +872,7 @@ class PlacementEngine:
             upd = self._update_block(dict(zip(changed.tolist(), new_rows)))
             with self.tracer.span("engine.delta_apply", kind="delta",
                                   rows=int(changed.size), epoch=st.epoch + 1):
-                programs.scatter_rows(st.dev, self._h2d(upd))
+                self._state_delta(upd)
             st.mirror[changed] = new_rows
             st.epoch += 1
             st.delta_uploads += 1
@@ -905,13 +922,15 @@ class PlacementEngine:
                 f"{bad[:8].tolist()} at epoch {st.epoch}: a free-matrix "
                 "mutation was not declared to note_free_rows"
             )
-        dev_host = st.dev[: masked.shape[0]].cpu().numpy()
+        lo, hi = self._state_rows()
+        dev_host = st.dev[: hi - lo].cpu().numpy()
         if self._staged:
             dev_host = dev_host.copy()
             for i, row in self._staged.items():
-                dev_host[i] = row
-        if not np.array_equal(dev_host, masked):
-            bad = np.flatnonzero((dev_host != masked).any(axis=1))
+                if lo <= i < hi:
+                    dev_host[i - lo] = row
+        if not np.array_equal(dev_host, masked[lo:hi]):
+            bad = lo + np.flatnonzero((dev_host != masked[lo:hi]).any(axis=1))
             raise RuntimeError(
                 f"device free-state buffer diverged from host on rows "
                 f"{bad[:8].tolist()} at epoch {st.epoch}"
@@ -1310,7 +1329,7 @@ class PlacementEngine:
 
     def _sub_device(self, dom: int) -> torch.device:
         """The device a domain shard's sub-engine runs on: this engine's
-        (the mesh engine of item 7 will spread them)."""
+        (parallel/sharded.py's mesh engine: its rank's device)."""
         return self.device
 
     def _make_sub_engine(self, shard) -> "PlacementEngine":

@@ -324,19 +324,27 @@ _CAPTURE_PRIORITY = -1
 
 #: graph replays since the last reset, over every engine of the process,
 #: by program ("K5" the fused, "K6" the incremental, "whatif" the
-#: defragmenter's what-if): what a caller that does not hold the engines
-#: (the scheduler builds and replaces its own) reads, as kernel_core's
-#: launch counters are read; under one lock
-_REPLAYS = {"K5": 0, "K6": 0, "whatif": 0}
+#: defragmenter's what-if), and the eager launches of the mesh program
+#: ("K8", parallel/sharded.py, never captured): what a caller that does
+#: not hold the engines (the scheduler builds and replaces its own)
+#: reads, as kernel_core's launch counters are read; under one lock
+_REPLAYS = {"K5": 0, "K6": 0, "whatif": 0, "K8": 0}
 #: graph captures since the last reset, by program, counted alike
 _CAPTURES = {"K5": 0, "K6": 0, "whatif": 0}
 _REPLAY_LOCK = threading.Lock()
 
 
 def replay_counts() -> dict[str, int]:
-    """Graph replays since the last reset, by program."""
+    """Graph replays (and K8's eager launches) since the last reset, by
+    program."""
     with _REPLAY_LOCK:
         return dict(_REPLAYS)
+
+
+def count_eager(program: str) -> None:
+    """One eager launch of a program that runs uncaptured (K8)."""
+    with _REPLAY_LOCK:
+        _REPLAYS[program] += 1
 
 
 def capture_counts() -> dict[str, int]:
@@ -349,7 +357,7 @@ def reset_replays() -> None:
     """Set every program's replay and capture counts to 0."""
     with _REPLAY_LOCK:
         for counts in (_REPLAYS, _CAPTURES):
-            counts.update(K5=0, K6=0, whatif=0)
+            counts.update(dict.fromkeys(counts, 0))
 
 
 def load_cache(value_in: torch.Tensor, td_in: torch.Tensor, cache) -> int:

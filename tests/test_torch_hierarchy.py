@@ -12,10 +12,11 @@ non-timing stat (`hier_*`, `hierarchical`, `incremental`, ...). Against
 the port's own flat engine the promise is the reference's: score-equal,
 not bit-equal. The wave (auto width) equals width 0 bit for bit.
 
-Not mirrored yet: `TestShardedHierarchy` and the sharded wave case wait
-for the sharded engine (ROADMAP item 7); `TestConfigAndScheduler` waits
-for the control plane (item 6b), except its engine-only debug-summary
-case, which is here.
+`TestShardedHierarchy` and the sharded wave case run on the port's mesh
+engine in gloo ranks (tests/torch_mesh.py), against the JAX mesh engine.
+`TestConfigAndScheduler`'s scheduler case runs through the lockstep
+Harness (tests/test_torch_harness.py); its engine-only debug-summary
+case is here.
 """
 
 import dataclasses
@@ -677,6 +678,156 @@ class TestReferenceFaultR4:
         for _, rj, rt, _ in steps:
             assert (rt.stats["hier_repair_fallbacks"]
                     == rj.stats["hier_repair_fallbacks"])
+
+
+# -- the domain-sharded hierarchy on the mesh engine ----------------------------
+def _sharded_cases() -> dict:
+    """name -> (JAX snapshot, JAX steps, knobs): test_hierarchy.py's
+    sharded cases. Each step's free starts from the snapshot's (or the
+    case's) matrix, as the reference passes a fresh copy to each solve."""
+    snap = make_cluster(256)
+    gangs = [make_gang(f"g{i:02d}") for i in range(16)]
+    dirty = list(gangs)
+    dirty[1] = make_gang("fresh-0")
+    spread = [make_gang(f"g{i:02d}", pods=8, cpu=16.0) for i in range(24)]
+    wsnap, wfree, wgangs = spread_problem()
+    hier = {"hierarchical": True}
+    return {
+        "bitwise_matches_single": (snap, [{"gangs": gangs}], hier),
+        "incremental_runs_shard_locally": (
+            snap, [{"gangs": gangs, "free": snap.free},
+                   {"gangs": dirty, "free": snap.free}], hier),
+        "sub_engines_on_the_rank_device": (snap, [{"gangs": spread}], hier),
+        "wave_serial": (wsnap, [{"gangs": wgangs, "free": wfree}],
+                        {**hier, "hier_parallel_workers": 0}),
+        "wave_auto": (wsnap, [{"gangs": wgangs, "free": wfree}], hier),
+    }
+
+
+SHARDED_CASES = _sharded_cases()
+
+#: the wave's distinct sub-engine devices: the JAX package's one process
+#: holds 8 virtual devices, a rank of the port one
+_DEVICE_STATS = ("hier_wave_devices",)
+
+
+class TestShardedHierarchy:
+    """tests/test_hierarchy.py's TestShardedHierarchy and its sharded
+    wave case, on the port's mesh engine in 4 gloo ranks (2 x 2) against
+    the JAX mesh engine on the conftest's 8 devices (4 x 2) and the port's
+    single-device hierarchical engine: every step bit-equal (placements,
+    unplaced reasons, post-solve free, non-timing stats), on every rank.
+    The domain-sharded hierarchy runs no collective: each rank solves
+    every domain on its own device. The JAX package round-robins the
+    domains over its process's 8 devices; a rank of the port has one, so
+    every sub-engine is on it, and the wave's device count is left out."""
+
+    @pytest.fixture(scope="class")
+    def runs(self):
+        from torch_mesh import run_ranks
+
+        jobs = []
+        for name, (snap, steps, knobs) in SHARDED_CASES.items():
+            jobs.append((name, "solve", {
+                "snap": port_snapshot(snap), "knobs": knobs,
+                "steps": [{**s, "gangs": port_gangs(s["gangs"])}
+                          for s in steps]}))
+        return run_ranks(4, jobs)
+
+    @pytest.fixture(scope="class")
+    def jax_runs(self):
+        from grove_tpu.parallel import ShardedPlacementEngine, make_solver_mesh
+
+        from torch_mesh import solve_step
+
+        mesh = make_solver_mesh()
+        out = {}
+        for name, (snap, steps, knobs) in SHARDED_CASES.items():
+            eng = ShardedPlacementEngine(snap, mesh, **knobs)
+            free = snap.free.copy()
+            res = []
+            for step in steps:
+                r = solve_step(eng, step, free)
+                r["free"] = free.copy()
+                r["workers"] = eng._wave_workers()
+                res.append(r)
+            out[name] = res
+        return out
+
+    @staticmethod
+    def port_flat(name):
+        """The port's single-device hierarchical engine on a case."""
+        from torch_mesh import solve_step
+
+        snap, steps, knobs = SHARDED_CASES[name]
+        eng = PlacementEngine(port_snapshot(snap), device="cpu", **knobs)
+        free = snap.free.copy()
+        res = []
+        for step in steps:
+            r = solve_step(eng, {**step, "gangs": port_gangs(step["gangs"])},
+                           free)
+            r["free"] = free.copy()
+            res.append(r)
+        return res
+
+    @staticmethod
+    def same(a: dict, b: dict, what: str, stats: bool = True) -> None:
+        for key in ("placed", "unplaced", "codes", "fallbacks"):
+            assert a[key] == b[key], f"{what}: {key}"
+        assert np.array_equal(a["free"], b["free"]), f"{what}: free"
+        if not stats:
+            return
+        sa = {k: v for k, v in a["stats"].items() if k not in _DEVICE_STATS}
+        sb = {k: v for k, v in b["stats"].items() if k not in _DEVICE_STATS}
+        assert sa == sb, f"{what}: stats"
+
+    @pytest.mark.parametrize("case", sorted(SHARDED_CASES))
+    def test_case_bit_equal_on_every_rank(self, runs, jax_runs, case):
+        flat = self.port_flat(case)
+        for r, rank in enumerate(runs):
+            for i, step in enumerate(rank[case]["steps"]):
+                self.same(step, jax_runs[case][i], f"rank {r} step {i} JAX")
+                self.same(step, flat[i], f"rank {r} step {i} port flat")
+                assert step["stats"].get("hierarchical") == 1.0
+
+    def test_sharded_bitwise_matches_single(self, runs):
+        steps = runs[0]["bitwise_matches_single"]["steps"]
+        assert len(steps[0]["placed"]) == 16
+
+    def test_sharded_incremental_runs_shard_locally(self, runs):
+        """The flat mesh path keeps incremental off; the domain-sharded
+        hierarchy runs it in its sub-engines."""
+        for rank in runs:
+            steps = rank["incremental_runs_shard_locally"]["steps"]
+            eng = steps[-1]["engine"]
+            assert eng["incremental"] is False
+            assert eng["sub_incremental"] == [True]
+            assert steps[-1]["stats"].get("incremental") == 1.0
+            assert eng["dispatches"]["incremental"] >= 1
+
+    def test_sub_engines_on_the_rank_device(self, runs):
+        """The reference's round-robin over its 8 local devices, on a
+        rank with one: several domains solved, every sub-engine on the
+        rank's device."""
+        for rank in runs:
+            eng = rank["sub_engines_on_the_rank_device"]["steps"][0]["engine"]
+            assert eng["shards"] >= 2
+            assert eng["sub_devices"] == ["cpu"]
+
+    def test_sharded_wave_bitwise_matches_serial(self, runs, jax_runs):
+        """The wave (auto width) equals the serial fine solves bit for
+        bit; the mesh's auto width covers its local devices; the wave ran
+        two domains or more."""
+        for rank in runs:
+            serial = rank["wave_serial"]["steps"][0]
+            wave = rank["wave_auto"]["steps"][0]
+            self.same(wave, serial, "wave vs serial", stats=False)
+            assert wave["stats"]["hier_wave_width"] >= 2
+            workers = wave["engine"]["wave_workers"]
+            assert workers >= 1 and workers == PlacementEngine(
+                port_snapshot(SHARDED_CASES["wave_auto"][0]),
+                device="cpu")._wave_workers()
+        assert jax_runs["wave_auto"][0]["workers"] >= 8
 
 
 if __name__ == "__main__":

@@ -91,3 +91,25 @@ def test_hierarchy_module_is_scanned():
     not imported)."""
     assert "grove_tpu_torch.solver.hierarchy" in set(_modules())
     assert (PACKAGE / "solver" / "hierarchy.py").is_file()
+
+
+def test_mesh_and_stream_modules_are_scanned():
+    """The sharded engine, its bring-up and the streaming front are among
+    the modules both checks above cover, and export the reference's
+    names."""
+    mods = set(_modules())
+    assert {"grove_tpu_torch.parallel", "grove_tpu_torch.parallel.sharded",
+            "grove_tpu_torch.parallel.multihost",
+            "grove_tpu_torch.streaming",
+            "grove_tpu_torch.streaming.front"} <= mods
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import grove_tpu_torch.parallel as p, grove_tpu_torch.streaming as s\n"
+         "print(sorted(set(p.__all__) & {'ShardedPlacementEngine', "
+         "'initialize_multihost', 'make_solver_mesh', 'sharded_score'}), "
+         "'StreamFront' in s.__all__)"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120, check=True,
+    )
+    assert out.stdout.split() == [
+        "['ShardedPlacementEngine',", "'initialize_multihost',",
+        "'make_solver_mesh',", "'sharded_score']", "True"], out.stdout

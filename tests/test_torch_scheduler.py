@@ -539,6 +539,60 @@ class TestEngineLifetime:
         assert first._free_buf is None and first._statics is None
         assert first._state.dev is None
 
+    def test_mesh_engine_keeps_its_mesh_across_rebind_and_rebuild(
+            self, monkeypatch):
+        """The scheduler on the mesh engine (a one-rank gloo group formed
+        here and destroyed at the end; the JAX package's on its 8-device
+        mesh): planes equal after a cold round, a cordon (the engine
+        rebinds in place) and a node added (a new mesh engine on the same
+        mesh; the old one released, its node block and statics freed)."""
+        from functools import partial
+
+        import jax
+        import torch.distributed as dist
+        from grove_tpu.parallel import ShardedPlacementEngine as JaxSharded
+        from grove_tpu.parallel import make_solver_mesh as jax_mesh
+        from grove_tpu_torch.parallel import (
+            ShardedPlacementEngine, initialize_multihost, make_solver_mesh)
+
+        for var in ("GROVE_TPU_COORDINATOR", "GROVE_TPU_NUM_PROCESSES",
+                    "GROVE_TPU_PROCESS_ID"):
+            monkeypatch.delenv(var, raising=False)
+        assert initialize_multihost(device="cpu") == (0, 1)
+        try:
+            mesh = make_solver_mesh(device="cpu")
+            nodes_j, ct = stress_inventory(256)
+            pair = Pair.__new__(Pair)
+            pair.constrained, pair.next_gang, pair.rounds = False, 0, []
+            pair.j = Plane(JAX, nodes_j, ct, {}, engine_cls=partial(
+                JaxSharded, mesh=jax_mesh(jax.devices())))
+            pair.t = Plane(TORCH, [api_object(n) for n in nodes_j],
+                           api_object(ct), {}, engine_cls=partial(
+                               ShardedPlacementEngine, mesh=mesh))
+            pair.add_stress(12)
+            pair.settle_and_compare("cold")
+            first = pair.t.scheduler._engine
+            assert type(first) is ShardedPlacementEngine
+            assert first.mesh is mesh
+            pair.both(lambda pl, _cv: pl.cluster.cordon("n3"))
+            pair.add_stress(2)
+            pair.settle_and_compare("cordon")
+            assert pair.t.scheduler._engine is first
+            api = JAX.api
+            node = api.Node(metadata=api.ObjectMeta(name="n256", labels={
+                "t/block": "b1", "t/rack": "b1r0"}),
+                allocatable={"cpu": 32.0, "memory": 128.0, "tpu": 8.0})
+            pair.both(lambda pl, cv: pl.create(cv([node])))
+            pair.add_stress(2)
+            pair.settle_and_compare("node added")
+            second = pair.t.scheduler._engine
+            assert second is not first and second.mesh is mesh
+            assert type(second) is ShardedPlacementEngine
+            assert first._free_buf is None and first._statics is None
+            assert first._state.dev is None
+        finally:
+            dist.destroy_process_group()
+
     def test_engine_runs_on_the_card_unless_told_otherwise(self):
         """No device means the CUDA card: on a machine without one the
         scheduler raises where it is built instead of falling back to the
@@ -556,14 +610,31 @@ class TestEngineLifetime:
         engine = cpu._engine_for(cluster.topology_snapshot())
         assert engine.device.type == "cpu"
 
-    def test_unported_stream_front_raises(self):
-        nodes, ct = stress_inventory(32)
-        cfg = TORCH.config.load_operator_config({"stream": {"enabled": True}})
-        cluster = TORCH.cluster.Cluster(
-            nodes=[api_object(n) for n in nodes], topology=api_object(ct),
-            config=cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-            TORCH.scheduler.GangScheduler(cluster, device="cpu")
+    def test_stream_front_runs_in_both_packages(self):
+        """config.stream builds the streaming admission front in the
+        port's scheduler, as in the reference's: a flood of 40 PodGangs
+        at one instant against a queue of 16 sheds (overflow, then the
+        brownout ladder), the rest bind in micro-batches of 8 as the clock
+        steps, and the shed gangs are re-admitted and bind; the planes are
+        equal after the flood and after every step."""
+        pair = Pair({"stream": {
+            "enabled": True, "slo_seconds": 10.0, "window_min_seconds": 0.5,
+            "window_max_seconds": 2.0, "max_batch_gangs": 8,
+            "queue_cap_gangs": 16, "brownout_depth_fraction": 0.5,
+            "readmit_depth_fraction": 0.25}})
+        assert type(pair.t.scheduler.stream).__name__ == "StreamFront"
+        pair.add_stress(40)
+        pair.settle_and_compare("flood")
+        for step in range(30):
+            pair.both(lambda pl, _cv: pl.cluster.clock.advance(1.0))
+            pair.settle_and_compare(f"step {step}")
+        counters = scheduler_counters(pair.t)
+        assert counters == scheduler_counters(pair.j)
+        m = pair.t.cluster.metrics
+        assert m.counter("grove_stream_shed_total").total() > 0
+        assert m.counter("grove_stream_readmitted_total").total() > 0
+        assert len(pair.bound_gangs()) == 40
+        assert pair.t.scheduler.stream.queue_depth() == 0
 
 
 class TestStressInputs:

@@ -10,8 +10,9 @@ hard-feasibility contract exactly —
 The scenario suites check specific shapes; this sweeps the space. Then
 the same random problems, built in each package from the same seed, go
 through both packages' engines (default knobs, and the kernel tier):
-bit-equal placements, scores and unplaced reasons. The sharded case waits
-for the port's sharded engine.
+bit-equal placements, scores and unplaced reasons. The sharded case runs
+the port's mesh engine in 4 gloo ranks (2 x 2, tests/torch_mesh.py)
+against the JAX mesh engine of the same shape.
 """
 
 import numpy as np
@@ -235,3 +236,47 @@ def test_engine_matches_the_jax_package(seed, tier):
     ref = jax_solver.PlacementEngine(jsnap, **knobs).solve(jgangs)
     assert same_result(ours, ref)
     assert ours.stats["fallbacks"] == ref.stats["fallbacks"]
+
+
+#: tests/test_solver_fuzz.py's sharded seeds
+SHARDED_SEEDS = (1, 4)
+
+
+@pytest.fixture(scope="module")
+def sharded_runs():
+    """Every rank's sharded solve of each seed's problem."""
+    from torch_mesh import run_ranks
+
+    jobs = []
+    for seed in SHARDED_SEEDS:
+        snap, gangs = random_problem(seed)
+        jobs.append((f"seed{seed}", "solve",
+                     {"snap": snap, "steps": [{"gangs": gangs}]}))
+    return run_ranks(4, jobs)
+
+
+@pytest.mark.parametrize("seed", SHARDED_SEEDS)
+def test_sharded_engine_satisfies_hard_contract(sharded_runs, seed):
+    """Every rank's placements satisfy the hard contract and equal, bit
+    for bit, the JAX mesh engine's and the port's single-device engine's
+    (placements, scores, unplaced reasons and codes)."""
+    from types import SimpleNamespace
+
+    import jax
+    from grove_tpu.parallel import ShardedPlacementEngine, make_solver_mesh
+
+    from torch_mesh import placements
+
+    snap, gangs = random_problem(seed)
+    jsnap, jgangs = random_problem(seed, JAX_PKG)
+    ref = placements(ShardedPlacementEngine(
+        jsnap, make_solver_mesh(jax.devices()[:4])).solve(jgangs))
+    single = placements(PlacementEngine(snap).solve(gangs))
+    assert ref == single
+    for rank in sharded_runs:
+        res = rank[f"seed{seed}"]["steps"][0]
+        assert_result_valid(snap, gangs, SimpleNamespace(placed={
+            name: SimpleNamespace(node_indices=np.asarray(nodes, np.int64))
+            for name, (nodes, _score) in res["placed"].items()}))
+        assert len(res["placed"]) + len(res["unplaced"]) == len(gangs)
+        assert {k: res[k] for k in ref} == ref
