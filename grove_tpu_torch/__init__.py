@@ -19,10 +19,13 @@ controller runtime and the gang scheduler (`controller.GangScheduler`),
 with `serving` and `tenancy`; the workload controllers and the operator's
 `controller.Harness`; the mesh-sharded engine on `torch.distributed`
 (`parallel`: `initialize_multihost`, `make_solver_mesh`,
-`ShardedPlacementEngine`, one process a device); and the streaming
+`ShardedPlacementEngine`, one process a device); the streaming
 admission front (`streaming.StreamFront`, built by the gang scheduler
-where `config.stream.enabled` is set). Its entry points run on the card
-unless the caller passes device="cpu".
+where `config.stream.enabled` is set); and the sharded control plane
+(`controller.sharding`), the durable store (`cluster.durability`,
+`Harness.cold_restart`, `Harness.recover`) and seeded chaos
+(`chaos.ChaosHarness`). Its entry points run on the card unless the
+caller passes device="cpu".
 """
 
 # .solver before .native: the engine imports native, which imports solver

@@ -5,11 +5,10 @@ load node inventory, apply workloads, and produce solver-ready
 TopologySnapshots with live usage accounting (what the scheduler loop feeds
 the placement engine).
 
-The counterpart of grove_tpu/cluster/cluster.py. The durable store
-(`config.durability.wal_dir`), HA replication (`config.replication`) and
-the SLO engine (`config.slo`) are not ported yet (ROADMAP item 8): a
-config that enables one of them raises NotImplementedError, and so do
-`from_durable`, `cold_restart`, `promote_standby` and `rebuild_standby`.
+The counterpart of grove_tpu/cluster/cluster.py. HA replication
+(`config.replication`) and the SLO engine (`config.slo`) are not ported
+yet (ROADMAP item 8): a config that enables one of them raises
+NotImplementedError, and so do `promote_standby` and `rebuild_standby`.
 """
 
 from __future__ import annotations
@@ -42,28 +41,83 @@ from .store import Admission, ObjectStore, not_ported
 class Cluster:
     @classmethod
     def from_durable(cls, config: OperatorConfig) -> "Cluster":
-        """Boot from the durable state on disk: not ported yet."""
-        raise not_ported("Cluster.from_durable (the durable store)")
+        """Boot a GENUINELY NEW process from the durable state on disk
+        (the crashed predecessor's Python objects are gone — unlike
+        cold_restart, which recovers in place): recover the store from
+        `config.durability.wal_dir`, adopt the journal in resume mode,
+        and skip the bootstrap creates (topology, priority classes,
+        nodes) — they are IN the recovered history. The usual entry
+        point is Harness.recover(config), which also expires the dead
+        process's coordination leases."""
+        if not config.durability.wal_dir:
+            raise ValueError(
+                "Cluster.from_durable requires config.durability.wal_dir"
+            )
+        store = ObjectStore.recover(config.durability.wal_dir)
+        return cls(config=config, recovered_store=store)
 
     def __init__(self, nodes: list[Node] | None = None,
                  topology: ClusterTopology | None = None,
-                 config: OperatorConfig | None = None):
+                 config: OperatorConfig | None = None,
+                 recovered_store: ObjectStore | None = None):
+        if recovered_store is not None and (nodes or topology):
+            raise ValueError(
+                "a recovered store already carries its nodes and "
+                "topology; pass neither (see Cluster.from_durable)"
+            )
         self.config = config or OperatorConfig()
-        self.clock = SimClock()
+        self.clock = (
+            recovered_store.clock if recovered_store is not None
+            else SimClock()
+        )
         # One registry per cluster: scheduler + engine feed it, bench.py and
         # the /metrics text exposition read it (SURVEY §5: the reference has
         # no custom scheduler metrics; the north-star numbers live here).
+        # Built before the store so the durability layer can count into it.
         self.metrics = MetricsRegistry()
-        self.store = ObjectStore(self.clock)
-        # the durable store, HA replication and the SLO engine come with
-        # ROADMAP item 8: a config asking for one must not run without it
-        if self.config.durability.wal_dir:
-            raise not_ported("config.durability.wal_dir (the durable store)")
+        self.store = recovered_store or ObjectStore(self.clock)
+        # HA replication and the SLO engine come with ROADMAP item 8: a
+        # config asking for one must not run without it
         if self.config.replication.enabled:
             raise not_ported("config.replication (HA replication)")
         if self.config.slo.enabled:
             raise not_ported("config.slo (the SLO engine)")
+        # Durable state store (cluster/durability.py): attach the WAL
+        # BEFORE the first write so the journal covers the whole history —
+        # the bootstrap objects below (topology, priority classes, nodes)
+        # replay on recovery like everything else. A recovered store
+        # RESUMES the populated dir instead (no wipe, no refuse), and the
+        # boot checkpoint seals the pre-crash tail behind a fresh
+        # generation before any append.
         self.durability = None
+        if self.config.durability.wal_dir:
+            from .durability import DurableLog, PartitionedLog
+
+            # partitions > 1: the write path splits by (namespace, kind)
+            # into K independent WAL/snapshot chains behind the same
+            # facade (cluster/durability.PartitionedLog)
+            log_cls = (
+                PartitionedLog
+                if self.config.durability.partitions > 1
+                else DurableLog
+            )
+            self.durability = log_cls(
+                self.config.durability, clock=self.clock,
+                metrics=self.metrics,
+                resume=recovered_store is not None,
+            )
+            self.store.attach_durability(self.durability)
+            if recovered_store is not None:
+                # the recovered history's leadership term resumes with
+                # the journal (promotion fencing, HA replication)
+                self.durability.term = self.store.recovery_stats.get(
+                    "term", 0
+                )
+                self.durability.checkpoint(self.store)
+                self.metrics.counter(
+                    "grove_store_recoveries_total",
+                    "store recoveries from durable state by outcome",
+                ).inc(outcome=self.store.recovery_stats["outcome"])
         self.kubelet = SimKubelet(self.store)
         # The serving metrics pipeline (serving/): the aggregator
         # is cluster-owned like the DecisionLog — samples are
@@ -155,6 +209,19 @@ class Cluster:
             self.store.authorizer = make_authorizer(
                 self.config.authorization, store=self.store
             )
+        if recovered_store is not None:
+            # every bootstrap object is IN the recovered history — adopt
+            # the stored singleton instead of re-creating (AlreadyExists)
+            from .store import clone
+
+            stored = self.store.scan(ClusterTopology.KIND)
+            self.topology = (
+                clone(stored[0]) if stored
+                else default_cluster_topology([])
+            )
+            self._init_caches()
+            self._init_replication()
+            return
         # Topology sync at startup (clustertopology.go:41): ensure the
         # singleton ClusterTopology exists before any controller runs.
         # Precedence: explicit topology arg > config levels > inventory
@@ -315,9 +382,30 @@ class Cluster:
         self._free_epoch += 1
 
     def cold_restart(self) -> dict:
-        """Crash-restart of the store from its durable log: not ported
-        yet."""
-        raise not_ported("Cluster.cold_restart (the durable store)")
+        """Whole-process crash-restart of the STORE layer: replace the
+        live store state with what the durable log can prove (newest
+        valid snapshot + WAL replay, torn-tail tolerant), cut a recovery
+        checkpoint so the old — possibly torn — segment tail is never
+        appended over, and invalidate all derived soft state. Control
+        plane re-derivation (manager rebuild, lease expiry, kubelet
+        relist) is the harness's job: use Harness.cold_restart, which
+        calls this. Returns the recovery stats."""
+        if self.durability is None:
+            raise RuntimeError(
+                "cold_restart requires durability "
+                "(config.durability.wal_dir)"
+            )
+        stats = self.store.recover_in_place(self.durability.dir)
+        self.durability.term = max(
+            self.durability.term, stats.get("term", 0)
+        )
+        self.durability.checkpoint(self.store)
+        self.invalidate_soft_state()
+        self.metrics.counter(
+            "grove_store_recoveries_total",
+            "store recoveries from durable state by outcome",
+        ).inc(outcome=stats["outcome"])
+        return stats
 
     # -- node ops ----------------------------------------------------------
     #: read-modify-write attempts for node mutations before giving up (a

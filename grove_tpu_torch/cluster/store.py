@@ -817,8 +817,21 @@ class ObjectStore:
 
     @classmethod
     def recover(cls, wal_dir: str, clock: SimClock | None = None) -> "ObjectStore":
-        """Cold-start recovery from a durable log: not ported yet."""
-        raise not_ported("ObjectStore.recover (the durable store)")
+        """Cold-start recovery: rebuild a store from the durable state at
+        `wal_dir` — newest valid snapshot (checksum-verified, falling
+        back to older retained ones on corruption) + WAL replay in seq
+        order, torn-tail tolerant. The result is bit-identical to the
+        crashed store up to the last durable record: objects, retained
+        event log, compaction horizon, kind serials, and the seq/uid
+        counters all resume exactly. Recovery stats land on
+        `recovery_stats`. The returned store has NO DurableLog attached
+        (and no admission/authorizer wiring) — callers re-wire those, or
+        use Harness.cold_restart which does."""
+        from .durability import load_durable_state
+
+        store = cls(clock=clock)
+        store.recovery_stats = load_durable_state(wal_dir, store)
+        return store
 
     def adopt_state(self, other: "ObjectStore", stats: dict | None = None
                     ) -> None:
@@ -826,8 +839,23 @@ class ObjectStore:
         raise not_ported("ObjectStore.adopt_state (HA replication)")
 
     def recover_in_place(self, wal_dir: str) -> dict:
-        """Recovery from a durable log in place: not ported yet."""
-        raise not_ported("ObjectStore.recover_in_place (the durable store)")
+        """Replace THIS store's state with the recovered image, keeping
+        every piece of runtime wiring (admission chains, authorizer,
+        actor, flight recorder, attached DurableLog, clock) — how a
+        process-crash fault recovers mid-run without re-plumbing every
+        store reference (kubelet, cluster, chaos proxy). Returns the
+        recovery stats."""
+        from .durability import load_durable_state
+
+        self._objs = {}
+        self._events = []
+        self._label_idx = {}
+        self._kind_serial = {}
+        self._compacted_seq = 0
+        self._seq = itertools.count(1)
+        self._uid = 1
+        self.recovery_stats = load_durable_state(wal_dir, self)
+        return self.recovery_stats
 
     # -- garbage collection ------------------------------------------------
     def collect_orphans(self) -> int:

@@ -8,11 +8,13 @@ termination timer) and re-settles.
 
 The counterpart of grove_tpu/controller/harness.py. The gang scheduler's
 engine solves on the CUDA card unless the harness is built with
-device="cpu". Recovery from durable state (`recover`, `cold_restart`), the
-standby failover (`promote_standby`), federation (`adopt_workloads`), the
-SLO engine (`slo_sweep`, `maybe_slo_sweep`, `slo_scorecard`) and the
-sharded control plane (`config.controllers.shards > 1`) are not ported yet
-(ROADMAP item 8): each raises NotImplementedError.
+device="cpu". The sharded control plane (`config.controllers.shards > 1`)
+builds one `GangScheduler` a worker, each on that device; recovery from
+durable state (`recover`, `cold_restart`) rebuilds every manager, and with
+them every engine, there too. The standby failover (`promote_standby`),
+federation (`adopt_workloads`) and the SLO engine (`slo_sweep`,
+`maybe_slo_sweep`, `slo_scorecard`) are not ported yet (ROADMAP item 8):
+each raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -30,6 +32,31 @@ from .runtime import ControllerManager
 from .scheduler import GangScheduler
 
 _replica_counter = _count()
+
+
+def _expire_coordination_objects(store, config) -> None:
+    """Delete a crashed process's coordination objects: every Lease
+    outside kube-node-lease (leader election, shard workers, shard
+    coordinator) plus the ShardMap. Node heartbeat leases survive — the
+    kubelet fleet did not crash. The deletions go through the store like
+    any write — journaled, so a second crash during recovery replays
+    them too. Module-level (not a Harness method) because Harness.recover
+    must run it BEFORE the managers are built."""
+    from ..cluster.nodehealth import NODE_LEASE_NAMESPACE
+    from .leaderelection import Lease
+    from .sharding import ShardMap
+
+    doomed = [
+        (Lease.KIND, o.metadata.namespace, o.metadata.name)
+        for o in store.scan(Lease.KIND)
+        if o.metadata.namespace != NODE_LEASE_NAMESPACE
+    ] + [
+        (ShardMap.KIND, o.metadata.namespace, o.metadata.name)
+        for o in store.scan(ShardMap.KIND)
+    ]
+    with store.impersonate(config.authorization.operator_identity):
+        for kind, ns, name in doomed:
+            store.delete(kind, ns, name)
 
 
 class Harness:
@@ -141,33 +168,150 @@ class Harness:
 
     def _build_manager(self) -> None:
         """(Re)build the manager + a fresh set of reconcilers over the
-        SAME store: a new manager starts with event cursor 0 (replaying,
-        or relisting past a compaction horizon) and reconcilers rebuild
-        every in-memory cache from the store, exactly like a restarted
-        operator binary. The horizontally sharded control plane
-        (controllers.shards > 1) is not ported yet."""
+        SAME store. Called once from __init__ — and again by the chaos
+        harness to model an operator process crash-restart: a new manager
+        starts with event cursor 0 (replaying, or relisting past a
+        compaction horizon) and reconcilers rebuild every in-memory cache
+        from the store, exactly like a restarted operator binary.
+
+        With controllers.shards > 1 this builds the horizontally sharded
+        control plane instead (controller/sharding.py): N full worker
+        replicas behind a leader-owned shard map; the harness-facing
+        `manager` surface stays the same. The named component attributes
+        (`scheduler`/`autoscaler`/`node_monitor`) then point at the
+        worker that owns each singleton's shard at bootstrap — good for
+        dumps and drivers; per-worker instances live on
+        `manager.workers[i].components`.
+
+        The managers this replaces are released first: their engines'
+        resident state, pinned buffers and graphs go with them, so a
+        crash-restart holds one set of engines on the card, not two."""
+        self.release_engines()
         cc = self.config.controllers
-        if cc.shards > 1:
-            raise not_ported("config.controllers.shards > 1 (the sharded "
-                             "control plane)")
-        self.manager, comps = self._make_manager(
-            "manager", elector=self.elector
+        if cc.shards <= 1:
+            self.manager, comps = self._make_manager(
+                "manager", elector=self.elector
+            )
+            self.scheduler = comps["scheduler"]
+            self.autoscaler = comps["autoscaler"]
+            self.defrag = comps["defrag"]
+            self.node_monitor = comps["node_monitor"]
+            return
+        from .sharding import ShardedManager
+
+        def build_worker(worker):
+            return self._make_manager(f"manager.{worker.identity}")
+
+        self.manager = ShardedManager(
+            self.store,
+            num_workers=cc.shards,
+            lease_duration_seconds=cc.shard_lease_duration_seconds,
+            build_worker=build_worker,
+            identity=self.config.authorization.operator_identity,
+            metrics=self.cluster.metrics,
+            logger=self.cluster.logger.with_name("sharded-manager"),
+            tracer=self.cluster.tracer,
+            error_backoff_base_seconds=cc.error_backoff_base_seconds,
+            error_backoff_max_seconds=cc.error_backoff_max_seconds,
+            error_retry_budget=cc.error_retry_budget,
         )
-        self.scheduler = comps["scheduler"]
-        self.autoscaler = comps["autoscaler"]
-        self.defrag = comps["defrag"]
-        self.node_monitor = comps["node_monitor"]
+        # shared-cache prefetch (see ShardedManager.prefetch): the
+        # cluster's incremental usage accounting + topology snapshot are
+        # informer-style watch state; warming them between the workload
+        # passes and the scheduler's step keeps the shared-cache rebuild
+        # off the solve's critical path without changing what the
+        # scheduler reads (the cache is keyed on store state)
+        self.manager.prefetch = self.cluster.topology_snapshot
+        # the scheduler singleton's bootstrap owner (ownership can move
+        # on failover; the sharding debug section tracks the live map)
+        _shard, owner_id = self.manager.shard_owner("", "schedule")
+        owner = next(
+            (w for w in self.manager.workers if w.identity == owner_id),
+            self.manager.workers[0],
+        )
+        self.scheduler = owner.components["scheduler"]
+        self.autoscaler = owner.components["autoscaler"]
+        # the defragmenter rides the scheduler-owning worker's engine
+        self.defrag = owner.components["defrag"]
+        self.node_monitor = owner.components["node_monitor"]
+
+    def schedulers(self) -> list:
+        """Every GangScheduler of the live manager(s): one, or one per
+        sharded worker (each with its own engine on the device)."""
+        manager = getattr(self, "manager", None)
+        if manager is None:
+            return []
+        workers = getattr(manager, "workers", None)
+        if workers is None:
+            return [self.scheduler]
+        return [w.components["scheduler"] for w in workers]
+
+    def release_engines(self) -> None:
+        """Release the engines of this harness's managers: before a
+        crash-restart, a cold restart or a recovery replaces them, and
+        when a process is shut down. The old schedulers are dropped with
+        their managers, and their engines' device state must not outlive
+        them (each engine keeps a resident free state, pinned staging
+        buffers and a graph pool on the card). A released scheduler solves
+        again only by building a new engine."""
+        for scheduler in self.schedulers():
+            scheduler.release()
 
     @classmethod
     def recover(cls, config: OperatorConfig | dict, engine_cls=None,
                 device=None) -> "Harness":
-        """Boot a new process from durable state: not ported yet."""
-        raise not_ported("Harness.recover (the durable store)")
+        """Boot a GENUINELY NEW process from the durable state at
+        `config.durability.wal_dir` — the disaster-recovery path when
+        the crashed predecessor's process is gone (cold_restart covers
+        the in-process crash model). The store is rebuilt bit-identical
+        from disk (latest valid snapshot + WAL replay, torn-tail
+        tolerant), a boot checkpoint seals the pre-crash tail, the dead
+        process's coordination leases and ShardMap are expired, and the
+        fresh manager/scheduler/kubelet derive their soft state exactly
+        like any cold restart; settle() then reaches the pre-crash
+        fixpoint. Journaling RESUMES into the same wal_dir. `device` is
+        where the new process's engines solve (None = the CUDA card)."""
+        if isinstance(config, dict):
+            config = load_operator_config(config)
+        cluster = Cluster.from_durable(config)
+        # expire BEFORE the managers are built, mirroring cold_restart's
+        # expire -> rebuild order: a ShardedManager constructed against
+        # the dead fleet's ShardMap would adopt its shard width instead
+        # of the (possibly changed) config's
+        _expire_coordination_objects(cluster.store, cluster.config)
+        return cls(cluster=cluster, engine_cls=engine_cls, device=device)
 
     def cold_restart(self) -> dict:
-        """Whole-process crash-restart from durable state: not ported
-        yet."""
-        raise not_ported("Harness.cold_restart (the durable store)")
+        """Whole-process crash-restart from durable state (requires
+        config.durability.wal_dir): the live store is dropped and
+        recovered from disk (latest valid snapshot + WAL replay —
+        Cluster.cold_restart), then every piece of soft state is
+        re-derived the way a genuinely fresh process would derive it:
+
+          - control-plane coordination EXPIRES: the dead process's
+            leader-election lease, shard worker/coordinator leases and
+            the ShardMap are deleted, so the rebuilt manager re-elects
+            and rebuilds the shard map from scratch (node heartbeat
+            leases in kube-node-lease are infrastructure state and
+            survive — the kubelet fleet did not crash);
+          - a brand-new manager + reconciler set (cursor 0: replay, or
+            relist past the compaction horizon), fresh scheduler with
+            reservations reconstructed from bound pods, fresh engine on
+            the harness's device (the old engines released; device state
+            rebuilt — the free-delta journal was reset by
+            Cluster.invalidate_soft_state);
+          - the kubelet relists against the recovered store.
+
+        After settle() the control plane reaches the same fixpoint a
+        never-crashed run holds. Returns the recovery stats dict."""
+        stats = self.cluster.cold_restart()
+        self._expire_coordination()
+        self._build_manager()
+        self.kubelet.reset_for_recovery()
+        return stats
+
+    def _expire_coordination(self) -> None:
+        _expire_coordination_objects(self.store, self.config)
 
     def promote_standby(self, catch_up: bool = True,
                         force: bool = False) -> dict:

@@ -523,6 +523,22 @@ class GangScheduler:
         if release is not None:
             release()
 
+    def release(self) -> None:
+        """Release this scheduler's engine with the manager that drops it
+        (a crash-restart, a cold restart, a recovery; the sharded
+        plane's workers each hold one): an unconsumed dispatch is
+        cancelled and the engine's graphs, resident state and pinned
+        buffers are freed now, so the engines of a dead manager never
+        stay on the card beside their successors. The scheduler is not
+        used again."""
+        pending, self._pending = self._pending, None
+        self._pending_token = None
+        if pending is not None:
+            pending[4].cancel()
+        engine, self._engine = self._engine, None
+        if engine is not None:
+            self._retire_engine(engine)
+
     def _note_free_rows(self, engine, rows) -> None:
         """Forward a free-mutation declaration to the engine's device-
         state cache when it has one (note_free_rows superset contract;

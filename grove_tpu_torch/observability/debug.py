@@ -12,10 +12,10 @@ structured DUMPS instead of a sampling profiler:
                                  counts, scheduler/engine cache state
 
 The counterpart of grove_tpu/observability/debug.py. The sections of the
-parts not ported yet (ROADMAP item 8: the sharded control plane, the HA
-standby, federation, the SLO engine) never appear, as in the reference
-when those parts are off, and the placement service's Debug fetch (the
-reference's `main`) waits for the service.
+parts not ported yet (ROADMAP item 8: the HA standby, federation, the SLO
+engine) never appear, as in the reference when those parts are off, and
+the placement service's Debug fetch (the reference's `main`) waits for
+the service.
 """
 
 from __future__ import annotations
@@ -110,6 +110,13 @@ def harness_dump(harness) -> dict[str, Any]:
         "scheduler": scheduler_dump(harness.scheduler),
         "virtual_clock": harness.clock.now(),
     }
+    sharded = getattr(harness.manager, "debug_state", None)
+    if sharded is not None:
+        # the horizontally sharded control plane
+        # (controller/sharding.py): shard map epoch, pending moves,
+        # per-worker liveness/ownership/wall clocks — the runbook's
+        # first stop for "which shard is wedged"
+        out["sharding"] = sharded()
     monitor = getattr(harness, "node_monitor", None)
     if monitor is not None:
         out["node_lifecycle"] = monitor.debug_state()

@@ -645,6 +645,12 @@ def count_launch(name: str, n: int = 1) -> None:
     add_launches({name: n})
 
 
+def capturing() -> bool:
+    """Whether this thread is inside `capture_counts()` (a CUDA graph
+    capture, which launches nothing)."""
+    return getattr(_CAPTURING, "counts", None) is not None
+
+
 @contextlib.contextmanager
 def capture_counts():
     """Within the block, the wrappers' launches on THIS thread are counted

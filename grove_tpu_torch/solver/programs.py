@@ -189,8 +189,13 @@ def unpack_gangs(lay: IoLayout, io: torch.Tensor) -> dict:
 def scatter_rows(free: torch.Tensor, upd: torch.Tensor) -> None:
     """K7: write the delta block upd [K, 1+R] (node row | new masked
     values) into the resident free state [N + 1, R] in place. Padding rows
-    name row N, the absorbing row no product reads."""
+    name row N, the absorbing row no product reads. Counted as one K7
+    launch (`replay_counts`) where it runs, and not while a graph is
+    captured: a K5 or what-if replay that carries a delta block counts
+    its K7."""
     free.index_copy_(0, upd[:, 0].to(torch.int64), upd[:, 1:])
+    if not kc.capturing():
+        count_eager("K7")
 
 
 def value_operands(free, statics, masks, p: dict):
@@ -328,21 +333,22 @@ _CAPTURE_PRIORITY = -1
 #: ("K8", parallel/sharded.py, never captured): what a caller that does
 #: not hold the engines (the scheduler builds and replaces its own)
 #: reads, as kernel_core's launch counters are read; under one lock
-_REPLAYS = {"K5": 0, "K6": 0, "whatif": 0, "K8": 0}
+_REPLAYS = {"K5": 0, "K6": 0, "K7": 0, "whatif": 0, "K8": 0}
 #: graph captures since the last reset, by program, counted alike
 _CAPTURES = {"K5": 0, "K6": 0, "whatif": 0}
 _REPLAY_LOCK = threading.Lock()
 
 
 def replay_counts() -> dict[str, int]:
-    """Graph replays (and K8's eager launches) since the last reset, by
-    program."""
+    """Graph replays (and K7's and K8's eager launches) since the last
+    reset, by program."""
     with _REPLAY_LOCK:
         return dict(_REPLAYS)
 
 
 def count_eager(program: str) -> None:
-    """One eager launch of a program that runs uncaptured (K8)."""
+    """One eager launch of a program that runs uncaptured (K7 as its own
+    launch, K8)."""
     with _REPLAY_LOCK:
         _REPLAYS[program] += 1
 
@@ -549,10 +555,16 @@ class FusedGraphs:
             _REPLAYS[program] += 1
         if program == "K6":
             self.inc_replays += 1
-        elif program == "whatif":
-            self.whatif_replays += 1
         else:
-            self.delta_replays += bool(lay.offsets["upd"][1])
+            # K5 and the what-if run fused_score: K7 on a delta block
+            delta = bool(lay.offsets["upd"][1])
+            if program == "whatif":
+                self.whatif_replays += 1
+            else:
+                self.delta_replays += delta
+            if delta:
+                with _REPLAY_LOCK:
+                    _REPLAYS["K7"] += 1
         for name, n in entry.launches.items():
             self.launches[name] = self.launches.get(name, 0) + n
         return entry.outs

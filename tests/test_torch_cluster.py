@@ -135,15 +135,33 @@ class TestStore:
         with pytest.raises(NotFound):
             c.store.delete("Pod", "default", "nope")
 
-    def test_durable_recovery_is_refused_until_ported(self):
+    def test_durable_recovery_round_trips(self, tmp_path):
+        """The durable store (ROADMAP item 8b, refused until it was
+        ported): a cluster journals, `ObjectStore.recover` and
+        `recover_in_place` rebuild its store from the files, an empty
+        directory and a cluster without a journal refuse as the
+        reference's do."""
+        from grove_tpu_torch.api.config import load_operator_config
+        from grove_tpu_torch.cluster.durability import DurabilityError
         from grove_tpu_torch.cluster.store import ObjectStore
 
-        with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-            ObjectStore.recover("wal")
-        with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-            ObjectStore().recover_in_place("wal")
-        with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+        (tmp_path / "empty").mkdir()
+        with pytest.raises(DurabilityError, match="no durable state"):
+            ObjectStore.recover(str(tmp_path / "empty"))
+        with pytest.raises(RuntimeError, match="durability"):
             Cluster().cold_restart()
+        wal = str(tmp_path / "wal")
+        c = Cluster(nodes=make_nodes(2), config=load_operator_config(
+            {"durability": {"wal_dir": wal, "fsync": "never"}}))
+        c.store.create(make_pod("p", node="node-0"))
+        back = ObjectStore.recover(wal)
+        assert back.recovery_stats["outcome"] == "clean"
+        assert back.last_seq == c.store.last_seq
+        assert back.get(Pod.KIND, "default", "p") == \
+            c.store.get(Pod.KIND, "default", "p")
+        again = ObjectStore()
+        assert again.recover_in_place(wal)["outcome"] == "clean"
+        assert again.object_counts() == c.store.object_counts()
 
 
 class TestKubelet:

@@ -4,8 +4,8 @@ against the JAX package's.
 The decode cases of tests/test_config.py run on the port; its cases that
 built a `Harness` run on the port's Cluster, ControllerManager and
 GangScheduler (the `Harness` and the workload controllers are not ported
-yet), except the durable store's, which the port refuses with
-NotImplementedError. Then both packages load the same valid dicts, and
+yet); the durable store's knobs attach the port's journal
+(tests/test_torch_durability.py holds it against the reference's). Then both packages load the same valid dicts, and
 their `dataclasses.asdict` trees are equal field by field; and the same
 invalid dicts, whose `ValidationError` messages are equal, message by
 message, in order.
@@ -199,12 +199,23 @@ class TestConfigChangesBehavior:
         assert pl.manager.error_backoff_max_seconds == 40.0
         assert pl.manager.error_retry_budget == 4
 
-    def test_durable_store_is_refused_until_ported(self, tmp_path):
-        cfg = load_operator_config(
-            {"durability": {"wal_dir": str(tmp_path / "wal"),
-                            "fsync": "never"}})
-        with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-            Cluster(nodes=make_nodes(2), config=cfg)
+    def test_durable_store_attaches_its_journal(self, tmp_path):
+        """`config.durability` (refused until ROADMAP item 8b was
+        ported): a wal_dir attaches the journal the config names, one WAL
+        or `partitions` of them, with the config's fsync policy."""
+        from grove_tpu_torch.cluster.durability import (
+            DurableLog,
+            PartitionedLog,
+        )
+
+        for parts, cls in ((1, DurableLog), (3, PartitionedLog)):
+            cfg = load_operator_config(
+                {"durability": {"wal_dir": str(tmp_path / f"wal{parts}"),
+                                "fsync": "commit", "partitions": parts}})
+            c = Cluster(nodes=make_nodes(2), config=cfg)
+            assert type(c.durability) is cls
+            assert c.store.durability is c.durability
+            assert c.durability.wal_records_total > 0
         assert Cluster(nodes=make_nodes(2)).durability is None
 
     @pytest.mark.parametrize("section", ["replication", "slo"])

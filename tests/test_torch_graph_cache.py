@@ -69,6 +69,16 @@ def eager_graph_engine(snap, monkeypatch, **knobs):
     return eng
 
 
+class CapturedEagerGraphs(EagerGraphs):
+    """EagerGraphs whose program runs count as a capture's do on the card:
+    the wrappers it calls (K7's `scatter_rows` among them) add nothing to
+    the counters, and a replay adds what `FusedGraphs.run` counts."""
+
+    def _program(self, *args, **kw):
+        with kc.capture_counts():
+            return super()._program(*args, **kw)
+
+
 def fake_entry(rows=4, cols=3):
     """An entry shaped like a captured graph's: its (packed, value, td)
     outputs."""
@@ -220,6 +230,22 @@ class TestLaunchCounters:
             kc.count_launch("scatter")
         kc.reset_launches()
 
+    def test_delta_scatter_counts_as_k7_outside_a_capture(self):
+        """K7 (`programs.scatter_rows`) counts one launch in
+        `replay_counts()` where it runs, none while a graph is captured
+        (a K5 replay carrying a delta block counts it instead)."""
+        free = torch.zeros(5, 2)
+        upd = torch.tensor([[1.0, 3.0, 4.0], [4.0, 0.0, 0.0]])
+        programs.reset_replays()
+        programs.scatter_rows(free, upd)
+        assert programs.replay_counts()["K7"] == 1
+        assert free[1].tolist() == [3.0, 4.0]
+        with kc.capture_counts():
+            programs.scatter_rows(free, upd)
+        assert programs.replay_counts()["K7"] == 1
+        programs.reset_replays()
+        assert programs.replay_counts()["K7"] == 0
+
 
 def captured_inc_call(monkeypatch):
     """Run an incremental tick on a CPU engine (the kernels' plain
@@ -339,3 +365,28 @@ def assert_same(a, b, free_a, free_b):
     assert {n: str(r) for n, r in a.unplaced.items()} == {
         n: str(r) for n, r in b.unplaced.items()}
     assert np.array_equal(free_a, free_b)
+
+
+def test_whatif_replay_with_rows_counts_its_k7(monkeypatch):
+    """A what-if graph whose io carries overlay rows runs K7 on its
+    scratch copy inside the graph: each replay counts one K7 launch, as a
+    K5 replay with a delta block does, and the resident state is not
+    written."""
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+    snap = stress.make_cluster(512)
+    eng = PlacementEngine(snap, device="cpu", pallas_core=True,
+                          device_commit=True)
+    eng._graphs = CapturedEagerGraphs(eng.device, eng._graph_evicted)
+    free = snap.free.copy()
+    eng.solve(stress.make_gangs(40), free=free)
+    probe = stress.make_gangs(3)
+    for j, g in enumerate(probe):
+        g.name = f"w{j}"
+    programs.reset_replays()
+    for i in range(3):
+        resident = eng._state.dev.clone()
+        assert eng.whatif_scores(probe, free=free,
+                                 free_rows={4: snap.capacity[4]}) is not None
+        assert torch.equal(eng._state.dev, resident)
+        counts = programs.replay_counts()
+        assert counts["whatif"] == counts["K7"] == i + 1

@@ -29,15 +29,22 @@ module's `Harness` is replaced by `LockstepHarness` while this module
 runs, so every inherited test drives both packages. The Harness cases of
 test_config, test_tenancy and test_serving, test_hierarchy's scheduler
 case and the examples' workloads (`examples/*.py`'s `build()`, scaled,
-crashed and deleted) run the same way. Tests of the reference that reach
-a part the port has not yet (ROADMAP item 8: the sharded plane,
-durability, chaos) are not inherited.
+crashed and deleted) run the same way. Not inherited here: the cases of
+those files that reach a part the port has not yet (ROADMAP item 8d-8g:
+the SLO engine, HA replication, federation), and their chaos cases,
+which are the next slice's lockstep work. The sharded plane, the durable
+store and chaos have their own files (tests/test_torch_sharding.py,
+test_torch_durability.py, test_torch_chaos.py), which reuse this file's
+lockstep; a durable store's wal_dir is carried into the port as a twin
+directory (`PATH_ROOTS`), and its byte counts are left out of the
+comparison (`_WALLS`).
 
 Beside them: the lockstep sees a divergence; a Harness with no device
-solves on the card (and fails without one); each item-8 entry point
-raises NotImplementedError naming the item; `debug_dump()` has the
-reference's sections; the explain CLI renders its demos as the
-reference's does.
+solves on the card (and fails without one); each entry point of item
+8d-8g raises NotImplementedError naming the item, and those of 8a-8b
+(`controllers.shards > 1`, `cold_restart`, `recover`) run in lockstep;
+`debug_dump()` has the reference's sections; the explain CLI renders its
+demos as the reference's does.
 """
 
 from __future__ import annotations
@@ -50,9 +57,10 @@ import enum
 import importlib
 import itertools
 import json
+import os
 import subprocess
 import sys
-from pathlib import Path
+from pathlib import Path, PurePath
 
 import numpy as np
 import pytest
@@ -62,7 +70,7 @@ from grove_tpu.controller import Harness as JaxHarness
 from grove_tpu_torch.controller import Harness as TorchHarness
 
 from test_torch_observability import decisions
-from test_torch_scheduler import metric_values
+from test_torch_scheduler import _IO_BYTES, metric_values
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -77,14 +85,41 @@ def _port_class(cls: type) -> type:
     return getattr(port, cls.__qualname__)
 
 
+#: (JAX-package root, port root) directory pairs: a path under the first
+#: is carried into the port under the second, so the two packages never
+#: write one directory (a durable store's wal_dir); a path the port
+#: returns reads back as the JAX package's (`_tree`)
+PATH_ROOTS: list[tuple[str, str]] = []
+
+
+def port_path(path: str) -> str:
+    """`path` as the port's twin under `PATH_ROOTS`, else unchanged."""
+    for jax_root, port_root in PATH_ROOTS:
+        if path == jax_root or path.startswith(jax_root + os.sep):
+            return port_root + path[len(jax_root):]
+    return path
+
+
+def _jax_path(path: str) -> str:
+    for jax_root, port_root in PATH_ROOTS:
+        if path == port_root or path.startswith(port_root + os.sep):
+            return jax_root + path[len(port_root):]
+    return path
+
+
 def to_port(obj):
     """`obj` (a JAX-package object, or plain data holding some) as the
     port's: a dataclass becomes the port's class of the same name, built
     from its fields by name; an enum member the port's member of the same
     value; containers are copied with their items carried; numpy arrays
-    copied; other values pass through."""
+    copied; a path under `PATH_ROOTS` becomes the port's twin; other
+    values pass through."""
     if isinstance(obj, Mirror):
         return obj._t
+    if isinstance(obj, str):
+        return port_path(obj)
+    if isinstance(obj, PurePath):
+        return type(obj)(port_path(str(obj)))
     if isinstance(obj, enum.Enum):
         return _port_class(type(obj))(obj.value)
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
@@ -162,8 +197,13 @@ def _key(k):
 
 
 #: fields that time walls, left out of `_tree` (a dict of walls keeps its
-#: count, as `metric_values` keeps a wall histogram's)
-_WALLS = {"wall_time": None, "duration_seconds": "count"}
+#: count, as `metric_values` keeps a wall histogram's), and the durable
+#: store's byte counts: its records are pickles that name each package's
+#: own modules, so their sizes differ (tests/test_torch_durability.py
+#: holds that difference, and everything else, equal)
+_WALLS = {"wall_time": None, "duration_seconds": "count",
+          "wall_seconds": None, "wal_bytes_total": None,
+          "segment_bytes": None}
 #: the port's own debug section (its graph cache), which the JAX package
 #: has no counterpart of
 _PORT_ONLY = frozenset({"fused_graphs"})
@@ -203,6 +243,10 @@ def _tree(v):
         return "array", v.dtype.str, v.shape, v.tobytes()
     if isinstance(v, float) and v != v:
         return "nan"
+    if isinstance(v, str):
+        return _jax_path(v)
+    if isinstance(v, (collections.abc.ItemsView, collections.abc.KeysView)):
+        return "list", [_tree(x) for x in v]
     return v
 
 
@@ -237,6 +281,19 @@ def _wrap(vj, vt, pair):
     return _mirror(vj, vt, pair)
 
 
+def _exposition_view(text: str) -> list[str]:
+    """A /metrics exposition less the lines that time walls (series of
+    `_seconds` families) and the durable store's byte counter."""
+    return [line for line in text.splitlines()
+            if "_seconds" not in line and _WAL_BYTES not in line
+            and _IO_BYTES not in line]
+
+
+#: (class name, method name) -> the view of a call's result that the
+#: packages must agree on, where the result holds walls
+_RESULT_VIEWS = {("MetricsRegistry", "render"): _exposition_view}
+
+
 class Mirror:
     """A JAX-package object and the port's counterpart: attribute reads,
     calls, attribute writes and `with` go to both; calls return the JAX
@@ -260,6 +317,9 @@ class Mirror:
             # a histogram of walls: its sum and percentiles differ by
             # run; the planes hold its counts equal
             return vj
+        if getattr(self._j, "name", None) in (_WAL_BYTES, _IO_BYTES):
+            # a count of bytes in each package's own layout (`_WALLS`)
+            return vj
         return _wrap(vj, vt, self._pair)
 
     def __setattr__(self, name, value):
@@ -273,11 +333,13 @@ class Mirror:
             lambda: self._j(*_to_jax(args), **_to_jax(kwargs)),
             lambda: self._t(*targs, **tkwargs),
         )
-        if ej is not None or et is not None:
-            assert ej is not None and et is not None, (
-                f"only one package raised: {ej!r} / {et!r}")
-            assert type(ej).__name__ == type(et).__name__, (ej, et)
-            raise ej
+        _raise_alike(ej, et, "call")
+        view = _RESULT_VIEWS.get((type(getattr(self._j, "__self__", None))
+                                  .__name__, getattr(self._j, "__name__", "")))
+        if view is not None:
+            assert view(rt) == view(rj), ("port != JAX in",
+                                          self._j.__name__)
+            return rj
         return _wrap(rj, rt, self._pair)
 
     def __enter__(self):
@@ -320,15 +382,32 @@ class Mirror:
         return bool(self._j)
 
 
+def _raise_alike(ej, et, what: str) -> None:
+    """Raise the JAX package's error where both raised one of the same
+    type; fail where only one raised."""
+    if ej is not None or et is not None:
+        assert ej is not None and et is not None, (
+            f"{what}: only one package raised: {ej!r} / {et!r}")
+        assert type(ej).__name__ == type(et).__name__, (ej, et)
+        raise ej
+
+
 def _both(fj, ft):
+    """Run the JAX package's call and the port's; return both results
+    and both errors. A BaseException the control plane raises on purpose
+    (the chaos suite's ManagerCrash) is caught as an error too."""
     rj = rt = ej = et = None
     try:
         rj = fj()
-    except Exception as e:  # noqa: BLE001 - compared with the port's
+    except (KeyboardInterrupt, SystemExit):
+        raise
+    except BaseException as e:  # noqa: BLE001 - compared with the port's
         ej = e
     try:
         rt = ft()
-    except Exception as e:  # noqa: BLE001
+    except (KeyboardInterrupt, SystemExit):
+        raise
+    except BaseException as e:  # noqa: BLE001
         et = e
     return rj, rt, ej, et
 
@@ -337,8 +416,11 @@ def _both(fj, ft):
 #: the harness steps after which the planes are compared
 STEPS = frozenset({
     "settle", "advance", "autoscale", "maybe_autoscale", "autoscale_sweep",
-    "defrag_sweep", "maybe_defrag",
+    "defrag_sweep", "maybe_defrag", "cold_restart",
 })
+
+#: the durable store's byte counter (see `_WALLS`)
+_WAL_BYTES = "grove_store_wal_bytes_total"
 
 
 def plane_state(h) -> dict:
@@ -366,13 +448,23 @@ def plane_state(h) -> dict:
         events.setdefault(
             (e.metadata.namespace, e.involved_kind, e.involved_name), []
         ).append((e.reason, e.type, e.count, e.message))
+    # the coordination objects whole: leader-election and shard-worker
+    # leases, node heartbeats, the sharded plane's ShardMap (ownership
+    # moves by lease expiry on the same clock in both packages)
+    coordination = {
+        (kind, o.metadata.namespace, o.metadata.name): _tree(o)
+        for kind in ("Lease", "ShardMap")
+        for o in store.scan(kind)
+    }
     return {
         "fingerprint": settled_fingerprint(store),
+        "coordination": coordination,
         "pods": pods,
         "gangs": gangs,
         "workloads": workloads,
         "events": {k: sorted(v) for k, v in events.items()},
-        "metrics": metric_values(h.cluster.metrics),
+        "metrics": {k: v for k, v in metric_values(h.cluster.metrics).items()
+                    if k != _WAL_BYTES},
         "decisions": decisions(h.cluster.decisions),
         "objects": store.object_counts(),
     }
@@ -401,19 +493,44 @@ class LockstepHarness(Mirror):
                                           or isinstance(cluster, Mirror)):
             raise NotImplementedError("a lockstep harness builds its engines "
                                       "and takes only a lockstep cluster")
-        # the leader-election identities count harnesses per package: start
-        # the port's count where the JAX package's stands
-        jax_count = sys.modules[JaxHarness.__module__]._replica_counter
-        sys.modules[TorchHarness.__module__]._replica_counter = \
-            itertools.count(int(repr(jax_count)[6:-1]))
+        self._sync_replica_counter()
         hj = JaxHarness(nodes=nodes, cluster=_to_jax(cluster),
                         config=_to_jax(config), cell_name=cell_name)
         ht = TorchHarness(nodes=to_port(nodes), cluster=to_port(cluster),
                           config=to_port(config), cell_name=cell_name,
                           device="cpu")
+        self._join(hj, ht)
+
+    def _join(self, hj, ht) -> None:
         super().__init__(hj, ht, None)
         object.__setattr__(self, "steps", 0)
         _PAIRS.append(self)
+
+    @staticmethod
+    def _sync_replica_counter() -> None:
+        """The leader-election identities count harnesses per package:
+        start the port's count where the JAX package's stands."""
+        jax_count = sys.modules[JaxHarness.__module__]._replica_counter
+        sys.modules[TorchHarness.__module__]._replica_counter = \
+            itertools.count(int(repr(jax_count)[6:-1]))
+
+    @classmethod
+    def recover(cls, config, engine_cls=None) -> "LockstepHarness":
+        """`Harness.recover(config)` of both packages (the port's wal_dir
+        its twin under `PATH_ROOTS`, its engines on the CPU): both boot,
+        or both raise alike."""
+        if engine_cls is not None:
+            raise NotImplementedError("a lockstep harness builds its engines")
+        cls._sync_replica_counter()
+        tconfig = to_port(config)
+        rj, rt, ej, et = _both(
+            lambda: JaxHarness.recover(_to_jax(config)),
+            lambda: TorchHarness.recover(tconfig, device="cpu"),
+        )
+        _raise_alike(ej, et, "recover")
+        pair = cls.__new__(cls)
+        pair._join(rj, rt)
+        return pair
 
     def __getattr__(self, name):
         value = super().__getattr__(name)
@@ -440,12 +557,8 @@ class _Step:
                 lambda: self.method._j(*_to_jax(args), **_to_jax(kwargs)),
                 lambda: self.method._t(*targs, **tkwargs),
             )
-            if ej is not None or et is not None:
-                assert ej is not None and et is not None, (
-                    f"{self.name}: only one package raised: {ej!r} / {et!r}")
-                assert type(ej).__name__ == type(et).__name__, (ej, et)
-                raise ej
-            assert rt == rj, f"{self.name}: results differ"
+            _raise_alike(ej, et, self.name)
+            assert _tree(rt) == _tree(rj), f"{self.name}: results differ"
             return rj
         finally:
             self.pair.compare(self.name)
@@ -660,24 +773,80 @@ def test_harness_without_device_solves_on_the_card():
 
 
 ITEM_8 = {
-    "recover": lambda h: TorchHarness.recover({}),
-    "cold_restart": lambda h: h.cold_restart(),
     "promote_standby": lambda h: h.promote_standby(),
     "adopt_workloads": lambda h: h.adopt_workloads([]),
     "slo_sweep": lambda h: h.slo_sweep(),
     "maybe_slo_sweep": lambda h: h.maybe_slo_sweep(),
     "slo_scorecard": lambda h: h.slo_scorecard(),
-    "sharded control plane": lambda h: TorchHarness(
-        nodes=to_port(ref_basic.make_nodes(2)), device="cpu",
-        config={"controllers": {"shards": 2}}),
 }
 
 
 @pytest.mark.parametrize("entry", sorted(ITEM_8))
 def test_item_8_entry_points_raise(entry):
+    """The parts still to port (HA replication, federation, the SLO
+    engine) raise NotImplementedError naming ROADMAP item 8."""
     h = TorchHarness(nodes=to_port(ref_basic.make_nodes(2)), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
         ITEM_8[entry](h)
+
+
+def register_twin(path: Path) -> tuple[str, str]:
+    """Make `path`'s port twin (a sibling directory) and register the
+    pair in `PATH_ROOTS`; the caller removes it after the test."""
+    twin = path.parent / (path.name + "-torch")
+    twin.mkdir(exist_ok=True)
+    pair = (str(path), str(twin))
+    PATH_ROOTS.append(pair)
+    return pair
+
+
+@pytest.fixture
+def port_paths(tmp_path):
+    """`tmp_path` with its port twin registered in `PATH_ROOTS` for the
+    test."""
+    pair = register_twin(tmp_path)
+    yield tmp_path
+    PATH_ROOTS.remove(pair)
+
+
+def _durable(tmp_path, **extra) -> dict:
+    return {"durability": {"wal_dir": str(tmp_path / "wal"),
+                           "fsync": "never"}, **extra}
+
+
+def _settled(config):
+    h = LockstepHarness(nodes=ref_basic.make_nodes(8), config=config)
+    h.apply(ref_basic.simple_pcs(replicas=2))
+    h.settle()
+    return h
+
+
+ITEM_8_PORTED = {
+    # items 8a-8b: these raised NotImplementedError until they were
+    # ported; now they run in lockstep with the reference
+    "sharded control plane": lambda tmp: _settled(
+        {"controllers": {"shards": 2}}),
+    "cold_restart": lambda tmp: _settled(_durable(tmp)).cold_restart(),
+    "recover": lambda tmp: _recovered(tmp),
+}
+
+
+def _recovered(tmp_path):
+    cfg = _durable(tmp_path)
+    old = _settled(cfg)
+    old.cluster.durability.close()
+    h = LockstepHarness.recover(cfg)
+    h.settle()
+    return h
+
+
+@pytest.mark.parametrize("entry", sorted(ITEM_8_PORTED))
+def test_item_8_ported_entry_points_work_in_lockstep(entry, port_paths):
+    """The sharded control plane (8a) and the durable store's recovery
+    (8b): the calls that raised before they were ported run in both
+    packages, the planes equal after every step."""
+    out = ITEM_8_PORTED[entry](port_paths)
+    assert out is not None
 
 
 # -- the debug dump and the explain CLI ---------------------------------------------

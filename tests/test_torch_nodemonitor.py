@@ -8,8 +8,9 @@ tests/test_leaderelection.py (the handover between a leader and a
 standby over one store) run here against `LockstepHarness`
 (test_torch_harness.py): both packages equal after every step in settled
 fingerprint, pods, PodGangs, events, metrics (less the engine's io
-bytes), decision records and object counts. The node-fault chaos and the
-sharded plane's leases wait for ROADMAP item 8.
+bytes), decision records and object counts. The node-fault chaos cases
+are the next slice's lockstep work (ROADMAP item 8); the sharded plane's
+lease cases run in tests/test_torch_sharding.py.
 
 Beside them, seeded lifecycles with the short windows of the verify
 skill: heartbeat loss, a drain, a rack outage (`fail_domain`), each
@@ -48,8 +49,8 @@ globals().update(inherit(
     leave_out={"TestCordonHardening": (
         "test_cordon_survives_transient_conflict_storm",)}))
 
-# test_leaderelection's handover cases (its two shard-lease cases need
-# the sharded control plane: ROADMAP item 8)
+# test_leaderelection's handover cases (its two shard-lease cases run in
+# tests/test_torch_sharding.py)
 for _name in ("test_standby_runs_nothing_while_leader_holds_lease",
               "test_standby_takes_over_after_lease_expiry",
               "test_clean_release_hands_off_immediately",

@@ -28,6 +28,7 @@ import pytest
 
 import test_streaming as ref_streaming
 import test_torch_harness as lockstep_mod
+import torch_lockstep
 from grove_tpu_torch.api.config import (
     load_operator_config as torch_load_config,
 )
@@ -37,7 +38,6 @@ from grove_tpu_torch.streaming import StreamFront as TorchStreamFront
 from test_torch_harness import (  # noqa: F401  (_compare_at_teardown: autouse)
     Mirror,
     _compare_at_teardown,
-    _tree,
     inherit,
     lockstep,
     to_port,
@@ -55,19 +55,9 @@ def lockstep_front(metrics=None, tenancy=None, **over):
     return Mirror(fj, TorchStreamFront(to_port(fj.cfg), None), None)
 
 
-def load_both(config):
-    """The operator config decoded by both packages: equal configs, or
-    the same error with the same text."""
-    try:
-        cj = _REF_LOAD(config)
-    except Exception as ej:  # noqa: BLE001 - compared with the port's
-        with pytest.raises(Exception) as et:
-            torch_load_config(config)
-        assert type(et.value).__name__ == type(ej).__name__
-        assert str(et.value) == str(ej)
-        raise
-    assert _tree(torch_load_config(config)) == _tree(cj)
-    return cj
+#: the operator config decoded by both packages: equal configs, or the
+#: same error with the same text
+load_both = torch_lockstep.load_both(_REF_LOAD, torch_load_config)
 
 
 @pytest.fixture(autouse=True, scope="module")
