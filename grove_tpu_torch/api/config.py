@@ -648,7 +648,7 @@ class ReplicationConfig:
 
 @dataclass
 class FederationConfig:
-    """Multi-cluster federation (federation/, not ported yet): a global
+    """Multi-cluster federation (federation/): a global
     coordinator routes each arriving gang to one member cluster using
     the hierarchical pruner's over-admitting coarse cut predicates
     (clusters as super-domains), delegates to that cluster's full

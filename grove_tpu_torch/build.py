@@ -39,7 +39,23 @@ NVCC_FLAGS = (
     "-Xptxas=-v",
 )
 
+#: the default build directory, beside the package
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "grove_tpu_torch"
+#: the directory tuning.enable_compilation_cache chose, if it was called
+_cache_dir: Path | None = None
+
+
+def build_dir() -> Path:
+    """Where the kernels and the native libraries (native/) are built and
+    looked up: the directory tuning.enable_compilation_cache chose, else
+    BUILD_DIR."""
+    return _cache_dir or BUILD_DIR
+
+
+def use_build_dir(path: Path | None) -> None:
+    """Build into and load from `path` from now on (None: BUILD_DIR)."""
+    global _cache_dir
+    _cache_dir = path
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -59,7 +75,7 @@ def library_path(name: str) -> Path:
     source and the compiler flags."""
     src = (PACKAGE_DIR / SOURCES[name]).read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    return build_dir() / f"lib{name}-{digest[:16]}.so"
 
 
 def build(names=None) -> dict[str, str]:
@@ -69,7 +85,7 @@ def build(names=None) -> dict[str, str]:
     kernel's registers and shared memory). Raises RuntimeError with the
     compiler output if any build fails."""
     names = list(SOURCES) if names is None else list(names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     running = {}
     for name in names:
         out = library_path(name)

@@ -3,17 +3,18 @@
 store.py, harness.py; docs/operations.md "Fault tolerance & chaos
 testing").
 
-The counterpart of grove_tpu/chaos/, less `chaos/federation.py` and its
-exports (`FederationChaos`, `federation_fingerprint`,
-`federation_invariants`), which wait for federation (ROADMAP item 8g).
-`ChaosHarness` takes the port's `device` (None = the CUDA card) and
-passes it to its `Harness`. The HA-replication faults
-(`standby_promotion`, `standby_crash`) reach `Harness.promote_standby` /
-`Cluster.rebuild_standby`, which raise NotImplementedError until HA
-replication is ported (item 8e); they draw only where a standby exists,
-which a port cluster never has yet.
+The counterpart of grove_tpu/chaos/. `ChaosHarness` takes the port's
+`device` (None = the CUDA card) and passes it to its `Harness`, so each
+engine a crash or a promotion rebuilds solves there too; `FederationChaos`
+drives a `FederationCoordinator`, whose members take the device the
+coordinator was built with.
 """
 
+from .federation import (
+    FederationChaos,
+    federation_fingerprint,
+    federation_invariants,
+)
 from .harness import ChaosHarness, check_invariants, settled_fingerprint
 from .plan import FaultPlan
 from .store import ChaosStore, ConflictStorm, ManagerCrash, TransientFault
@@ -23,8 +24,11 @@ __all__ = [
     "ChaosStore",
     "ConflictStorm",
     "FaultPlan",
+    "FederationChaos",
     "ManagerCrash",
     "TransientFault",
     "check_invariants",
+    "federation_fingerprint",
+    "federation_invariants",
     "settled_fingerprint",
 ]

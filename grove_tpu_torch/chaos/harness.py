@@ -1209,7 +1209,7 @@ class ChaosHarness:
         reconcile errors + events) with the wedged-object summary on top.
         Writes JSON to `path` when given; always returns the dict. Convert
         to a Perfetto-loadable Chrome trace with
-        the trace CLI (observability/trace.py, not ported yet)."""
+        `python -m grove_tpu_torch.observability.trace <path>`."""
         import json
 
         dump = self.flight.dump(wedged=self.wedged_summary())

@@ -1,9 +1,7 @@
 """Simulated cluster: object store (apiserver), clock, nodes, kubelet,
 node-lifecycle heartbeats.
 
-The counterpart of grove_tpu/cluster/__init__.py, less the replication
-names (`PromotionRefused`, `ReplicationLink`, `StandbyReplica`), which
-arrive with ROADMAP item 8.
+The counterpart of grove_tpu/cluster/__init__.py.
 """
 
 from .clock import SimClock
@@ -12,6 +10,7 @@ from .inventory import make_nodes
 from .kubelet import SimKubelet
 from .cluster import Cluster
 from .nodehealth import NODE_LEASE_NAMESPACE, NodeLease
+from .replication import PromotionRefused, ReplicationLink, StandbyReplica
 
 __all__ = [
     "Cluster",
@@ -19,8 +18,11 @@ __all__ = [
     "NODE_LEASE_NAMESPACE",
     "NodeLease",
     "ObjectStore",
+    "PromotionRefused",
+    "ReplicationLink",
     "SimClock",
     "SimKubelet",
+    "StandbyReplica",
     "StoreError",
     "make_nodes",
 ]

@@ -5,10 +5,10 @@ load node inventory, apply workloads, and produce solver-ready
 TopologySnapshots with live usage accounting (what the scheduler loop feeds
 the placement engine).
 
-The counterpart of grove_tpu/cluster/cluster.py. HA replication
-(`config.replication`) and the SLO engine (`config.slo`) are not ported
-yet (ROADMAP item 8): a config that enables one of them raises
-NotImplementedError, and so do `promote_standby` and `rebuild_standby`.
+The counterpart of grove_tpu/cluster/cluster.py, with the SLO engine
+(`config.slo`) and HA replication (`config.replication`: the standby,
+`promote_standby`, `rebuild_standby`). Nothing here touches the card: the
+engines that solve there belong to the harness's managers.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from ..observability.tracing import NOOP_TRACER
 from ..topology.encoding import TopologySnapshot, default_cluster_topology, encode_topology
 from .clock import SimClock
 from .kubelet import SimKubelet
-from .store import Admission, ObjectStore, not_ported
+from .store import Admission, ObjectStore
 
 
 class Cluster:
@@ -76,12 +76,6 @@ class Cluster:
         # Built before the store so the durability layer can count into it.
         self.metrics = MetricsRegistry()
         self.store = recovered_store or ObjectStore(self.clock)
-        # HA replication and the SLO engine come with ROADMAP item 8: a
-        # config asking for one must not run without it
-        if self.config.replication.enabled:
-            raise not_ported("config.replication (HA replication)")
-        if self.config.slo.enabled:
-            raise not_ported("config.slo (the SLO engine)")
         # Durable state store (cluster/durability.py): attach the WAL
         # BEFORE the first write so the journal covers the whole history —
         # the bootstrap objects below (topology, priority classes, nodes)
@@ -109,7 +103,7 @@ class Cluster:
             self.store.attach_durability(self.durability)
             if recovered_store is not None:
                 # the recovered history's leadership term resumes with
-                # the journal (promotion fencing, HA replication)
+                # the journal (promotion fencing, cluster/replication.py)
                 self.durability.term = self.store.recovery_stats.get(
                     "term", 0
                 )
@@ -154,7 +148,20 @@ class Cluster:
         from ..tenancy import TenancyManager
 
         self.tenancy = TenancyManager(self.config.tenancy, metrics=self.metrics)
+        # Continuous SLO evaluation (observability/slo.py): cluster-owned
+        # soft state like the DecisionLog — sample rings, alert states
+        # and history survive manager rebuilds, cold_restart() and
+        # promote_standby(); a genuinely new process re-warms from its
+        # first sweep. Gated on config (an absent engine means
+        # Harness.maybe_slo_sweep and the chaos hook are no-ops, which
+        # is also what keeps pre-existing chaos seeds bit-identical).
         self.slo = None
+        if self.config.slo.enabled:
+            from ..observability.slo import SLOEngine
+
+            self.slo = SLOEngine(
+                self.config.slo, metrics=self.metrics, clock=self.clock
+            )
         self.logger = Logger(
             level=self.config.log.level, format=self.config.log.format
         )
@@ -347,21 +354,98 @@ class Cluster:
         # the previous hop to the next span without new plumbing
         self.store.causal = CausalLedger()
         self.store.tracer = self.tracer
+        if self.slo is not None:
+            # a firing bind-latency SLO attaches its worst offenders'
+            # critical paths to the scorecard (observability/slo.py)
+            self.slo.path_source = self.tracer
         return self.tracer
 
-    # -- HA replication (ROADMAP item 8) -------------------------------------
+    # -- HA replication (cluster/replication.py) -----------------------------
     def _init_replication(self) -> None:
-        """No standby: __init__ refused a config that enables replication."""
+        """Build the log-shipping standby when config.replication is
+        enabled: the shared fencing link on the leader's log, a standby
+        store bootstrapped from the leader's durable directory, and the
+        per-commit ship hook (semi-sync appends before the commit
+        returns; async ships on lag-bound backpressure)."""
         self.standby = None
         self.replication_link = None
+        if not (self.config.replication.enabled and
+                self.durability is not None):
+            return
+        from .replication import ReplicationLink
+
+        self.replication_link = ReplicationLink(term=self.durability.term)
+        self.durability.link = self.replication_link
+        self._build_standby()
+
+    def _build_standby(self) -> None:
+        from .replication import StandbyReplica, next_generation
+
+        self.standby = StandbyReplica(
+            self.config, self.durability, self.store,
+            self.replication_link, metrics=self.metrics,
+            generation=next_generation(
+                self.config.replication.standby_wal_dir
+            ),
+        )
+        self.durability.post_commit = self.standby.on_leader_commit
 
     def rebuild_standby(self) -> None:
-        """Standby replacement: not ported yet."""
-        raise not_ported("Cluster.rebuild_standby (HA replication)")
+        """Standby replacement (the standby_crash chaos fault, or
+        re-arming HA after a promotion): the old replica's in-memory
+        state and journal generation are abandoned — its metric series
+        reconciled away — and a fresh standby bootstraps from the
+        CURRENT leader's snapshots + WAL into the next gen-NNNN
+        directory."""
+        if self.replication_link is None:
+            raise RuntimeError(
+                "rebuild_standby requires replication "
+                "(config.replication.enabled)"
+            )
+        if self.standby is not None:
+            self.standby.remove_metric_series()
+            self.standby.log.close()
+        self._build_standby()
 
     def promote_standby(self, catch_up: bool = True) -> dict:
-        """Failover to the standby: not ported yet."""
-        raise not_ported("Cluster.promote_standby (HA replication)")
+        """Failover, store layer: seal + fence the standby
+        (StandbyReplica.promote), transplant its applied state into the
+        live store object in place (every runtime wiring — admission,
+        authorizer, chaos proxy, kubelet references — survives, the
+        recover_in_place discipline), re-home its journal onto the live
+        clock as the cluster's durability, and invalidate all derived
+        soft state. Control-plane re-derivation (lease fencing check,
+        manager rebuild, kubelet relist) is the harness's job: use
+        Harness.promote_standby, which calls this. The deposed leader's
+        log stays fenced — any append it attempts raises FencedAppend."""
+        if self.standby is None:
+            raise RuntimeError(
+                "promote_standby requires a live standby "
+                "(config.replication.enabled; a promoted cluster must "
+                "rebuild_standby() to re-arm HA)"
+            )
+        replica = self.standby
+        old_log = self.durability
+        old_log.post_commit = None
+        stats = replica.promote(catch_up=catch_up)
+        old_log.close()
+        self.store.adopt_state(replica.store, stats)
+        self.durability = replica.log
+        self.durability.adopt_clock(self.clock)
+        self.durability.adopt_metrics(self.metrics)
+        self.store.attach_durability(self.durability)
+        replica.remove_metric_series()
+        self.standby = None
+        self.invalidate_soft_state()
+        self.metrics.counter(
+            "grove_store_recoveries_total",
+            "store recoveries from durable state by outcome",
+        ).inc(outcome="promoted")
+        self.metrics.counter(
+            "grove_store_promotions_total",
+            "standby promotions by outcome",
+        ).inc(outcome="promoted")
+        return stats
 
     # -- durability / cold restart ------------------------------------------
     def invalidate_soft_state(self) -> None:

@@ -1616,7 +1616,7 @@ def read_only_state(wal_dir: str) -> tuple["ObjectStore", dict[str, Any]]:
     store without attaching durability to it — a pure read: no
     checkpoint, no genesis segment, not one byte written under
     `wal_dir`. This is the federation coordinator's failover evidence
-    path (federation, not ported yet): after fencing a dead cluster it reads
+    path (federation/coordinator.py): after fencing a dead cluster it reads
     the committed gang set OUT of the fenced directory to drain into
     survivors, and the byte-unchanged directory is what proves the
     fence held. Returns (store, recovery stats) — the stats carry

@@ -34,12 +34,6 @@ class StoreError(Exception):
     pass
 
 
-def not_ported(what: str) -> NotImplementedError:
-    """The error a part of the control plane that is not ported yet
-    raises when its configuration asks for it, instead of ignoring it."""
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP item 8)")
-
-
 class NotFound(StoreError):
     pass
 
@@ -835,8 +829,30 @@ class ObjectStore:
 
     def adopt_state(self, other: "ObjectStore", stats: dict | None = None
                     ) -> None:
-        """A standby's promotion into this store: not ported yet."""
-        raise not_ported("ObjectStore.adopt_state (HA replication)")
+        """Replace THIS store's state with another store's — the standby
+        PROMOTION analog of recover_in_place: every piece of runtime
+        wiring (admission chains, authorizer, flight recorder, attached
+        DurableLog, clock identity) stays, while objects, event log,
+        indexes and counters become the donor's. The donor is consumed —
+        its containers are adopted by reference, never copied — and must
+        not be used afterwards. The live clock only moves FORWARD (the
+        donor's applied stamps are at or behind the leader's clock)."""
+        self._objs = {k: b for k, b in other._objs.items() if b}
+        self._events = list(other._events)
+        self._label_idx = {}
+        for kind, bucket in self._objs.items():
+            for key, obj in bucket.items():
+                self._index_add(kind, key, obj)
+        self._kind_serial = dict(other._kind_serial)
+        self._compacted_seq = other._compacted_seq
+        self._uid = other._uid
+        last = (
+            self._events[-1].seq if self._events else self._compacted_seq
+        )
+        self._seq = itertools.count(last + 1)
+        if hasattr(self.clock, "_now"):
+            self.clock._now = max(self.clock._now, other.clock.now())
+        self.recovery_stats = stats or {"outcome": "promoted"}
 
     def recover_in_place(self, wal_dir: str) -> dict:
         """Replace THIS store's state with the recovered image, keeping

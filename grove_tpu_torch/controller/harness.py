@@ -10,11 +10,12 @@ The counterpart of grove_tpu/controller/harness.py. The gang scheduler's
 engine solves on the CUDA card unless the harness is built with
 device="cpu". The sharded control plane (`config.controllers.shards > 1`)
 builds one `GangScheduler` a worker, each on that device; recovery from
-durable state (`recover`, `cold_restart`) rebuilds every manager, and with
-them every engine, there too. The standby failover (`promote_standby`),
-federation (`adopt_workloads`) and the SLO engine (`slo_sweep`,
-`maybe_slo_sweep`, `slo_scorecard`) are not ported yet (ROADMAP item 8):
-each raises NotImplementedError.
+durable state (`recover`, `cold_restart`) and the standby failover
+(`promote_standby`) rebuild every manager, and with them every engine,
+there too, after releasing the old ones. A federation member
+(`adopt_workloads`) is such a harness, and the SLO engine (`slo_sweep`,
+`maybe_slo_sweep`, `slo_scorecard`) reads the cluster's metrics on the
+host.
 """
 
 from __future__ import annotations
@@ -24,7 +25,6 @@ from itertools import count as _count
 from ..api.config import OperatorConfig, load_operator_config
 from ..api.types import Node, PodCliqueSet
 from ..cluster.cluster import Cluster
-from ..cluster.store import not_ported
 from .podclique import PodCliqueReconciler
 from .podcliqueset import PodCliqueSetReconciler
 from .podcliquescalinggroup import PCSGReconciler
@@ -69,8 +69,10 @@ class Harness:
         cmd/cli/cli.go:89-106). Ignored when an existing cluster (which owns
         its config) is passed.
 
-        cell_name: a plain label naming this harness as a member cluster
-        (federation itself is not ported yet).
+        cell_name: the member-cluster identity when this harness is one
+        cell of a federation (federation/). Passed only by the
+        coordinator, gated through `accepts_kwarg` so single-cluster
+        callers and older harness subclasses stay untouched.
 
         device: where the gang scheduler's engine solves. None is the CUDA
         card (the scheduler raises where there is none, so the harness is
@@ -315,8 +317,63 @@ class Harness:
 
     def promote_standby(self, catch_up: bool = True,
                         force: bool = False) -> dict:
-        """Failover to the log-shipping standby: not ported yet."""
-        raise not_ported("Harness.promote_standby (HA replication)")
+        """Failover to the log-shipping standby (requires
+        config.replication.enabled) — the seconds-scale alternative to
+        cold_restart()'s history-proportional disk replay:
+
+          - the LEASE FENCE runs first (the sharded plane's leases): a fresh
+            coordination lease in the standby's applied state — leader
+            election, shard workers, the coordinator — means the leader
+            plane is still renewing, and promotion refuses with
+            PromotionRefused (`grove_store_promotions_total{outcome=
+            "fence-refused"}`) rather than opening a dual-leader window
+            on purpose. force=True overrides when the operator knows the
+            leader is gone (the term fence still guarantees a surviving
+            stale leader cannot diverge the history);
+          - the standby seals its applied prefix behind a fresh
+            checkpoint, bumps the leadership term (stamped into every
+            subsequent WAL record) and becomes the store — transplanted
+            in place so every runtime reference survives
+            (Cluster.promote_standby);
+          - the dead leader's coordination leases and ShardMap expire,
+            the manager/scheduler rebuild (the sharded control plane
+            re-points at the promoted store), and the kubelet relists —
+            exactly the cold_restart re-derivation. The deposed
+            managers' engines are released first and the new ones built
+            on the harness's device (`_build_manager`).
+
+        catch_up=False models TOTAL leader loss (host and disk): the
+        standby serves only its already-applied prefix — zero loss under
+        semi-sync, at most the lag window under async. After settle()
+        the control plane reaches the same fixpoint (tests/
+        test_torch_replication.py holds it in lockstep with the
+        reference; chaos arms it as the standby_promotion fault).
+        Returns the promotion stats."""
+        cluster = self.cluster
+        if cluster.standby is None:
+            raise RuntimeError(
+                "promote_standby requires a live standby "
+                "(config.replication.enabled)"
+            )
+        if not force:
+            from ..cluster.replication import PromotionRefused
+
+            reason = cluster.standby.leader_lease_blocks(self.clock.now())
+            if reason is not None:
+                cluster.metrics.counter(
+                    "grove_store_promotions_total",
+                    "standby promotions by outcome",
+                ).inc(outcome="fence-refused")
+                cluster.metrics.counter(
+                    "grove_store_recoveries_total",
+                    "store recoveries from durable state by outcome",
+                ).inc(outcome="fence-refused")
+                raise PromotionRefused(reason)
+        stats = cluster.promote_standby(catch_up=catch_up)
+        self._expire_coordination()
+        self._build_manager()
+        self.kubelet.reset_for_recovery()
+        return stats
 
     def autoscale_sweep(self) -> bool:
         """The HPA sweep ALONE, no settle — the chaos loop interleaves
@@ -409,24 +466,89 @@ class Harness:
         return True
 
     def slo_sweep(self, store=None):
-        """One SLO evaluation sweep: not ported yet."""
-        raise not_ported("Harness.slo_sweep (the SLO engine)")
+        """One SLO evaluation sweep, no settle (evaluation-only: the
+        only store writes are advisory alert Events). Runs as the
+        operator identity and, under HA, only on the leader. `store`
+        lets the chaos driver route Events through the raw store so
+        sweeps consume zero fault-plan draws (seed replay stays
+        bit-identical with SLO evaluation on or off). Returns the sweep
+        stats dict, or None when disabled or standing by."""
+        engine = getattr(self.cluster, "slo", None)
+        if engine is None:
+            return None
+        if self.elector is not None:
+            with self.store.impersonate(
+                self.manager.identity or self.store.actor
+            ):
+                if not self.elector.try_acquire():
+                    return None  # standing by: the leader sweeps
+        with self.store.impersonate(
+            self.manager.identity or self.store.actor
+        ):
+            return engine.sweep(
+                store if store is not None else self.store,
+                tenancy=self.cluster.tenancy,
+            )
 
     def maybe_slo_sweep(self, store=None) -> bool:
-        """The periodic SLO sync: not ported yet."""
-        raise not_ported("Harness.maybe_slo_sweep (the SLO engine)")
+        """The periodic SLO sync (the maybe_autoscale/maybe_defrag
+        cadence shape): sweep when at least `slo.sync_interval_seconds`
+        of virtual time passed since the last one. Long-run drivers
+        (bench, the chaos loop) call this every step so the cadence is
+        governed by the validated config, not the driver's step size."""
+        engine = getattr(self.cluster, "slo", None)
+        if engine is None:
+            return False
+        if (
+            self.clock.now() - engine.last_sync
+            < self.config.slo.sync_interval_seconds
+        ):
+            return False
+        return self.slo_sweep(store=store) is not None
 
     def slo_scorecard(self) -> dict:
-        """The per-tenant SLO scorecard: not ported yet."""
-        raise not_ported("Harness.slo_scorecard (the SLO engine)")
+        """The per-tenant SLO scorecard JSON (ROADMAP item 3's artifact;
+        also surfaced via debug_dump()["slo"], the gRPC Debug service,
+        and chaos wedged postmortems)."""
+        engine = getattr(self.cluster, "slo", None)
+        if engine is None:
+            return {"enabled": False}
+        return engine.scorecard()
 
     def apply(self, pcs: PodCliqueSet):
         return self.store.create(pcs)
 
     def adopt_workloads(self, sets: list[PodCliqueSet],
                         source: str | None = None) -> list[PodCliqueSet]:
-        """Federation's drain entry point: not ported yet."""
-        raise not_ported("Harness.adopt_workloads (federation)")
+        """Federation drain entry point: adopt PodCliqueSets recovered
+        from ANOTHER cluster's durable history. Each set is re-created
+        here with a fresh ObjectMeta carrying only the portable identity
+        (name/namespace/labels/annotations) — uid, resource_version and
+        timestamps belong to the dead store's history, and its
+        deletion_timestamp/finalizers/owner_references must not leak
+        into a store that never saw the owners. The create rides the
+        normal admission + journal path, so an adopted gang is committed
+        here exactly like a user-applied one; the next settle() places
+        it through the ordinary scheduler/eviction machinery."""
+        from ..api.meta import ObjectMeta
+        from ..cluster.store import clone
+
+        out = []
+        for pcs in sets:
+            annotations = dict(pcs.metadata.annotations or {})
+            if source:
+                annotations["grove.io/drained-from"] = source
+            fresh = PodCliqueSet(
+                metadata=ObjectMeta(
+                    name=pcs.metadata.name,
+                    namespace=pcs.metadata.namespace,
+                    labels=dict(pcs.metadata.labels or {}),
+                    annotations=annotations,
+                ),
+                spec=clone(pcs.spec),
+            )
+            out.append(self.store.create(fresh))
+        return out
 
     def settle(self, max_rounds: int | None = None) -> None:
         """Controllers + kubelet to fixpoint: reconcile until quiescent,

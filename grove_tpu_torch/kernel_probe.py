@@ -58,13 +58,17 @@ from pathlib import Path
 
 import torch
 
-from .build import (BUILD_DIR, NVCC_FLAGS, PACKAGE_DIR, _kernel_name, _nvcc,
+from .build import (NVCC_FLAGS, PACKAGE_DIR, _kernel_name, _nvcc, build_dir,
                     library_path, load, ptxas_lines)
 
-PROBE_DIR = BUILD_DIR / "probe"
 REPS = 21
 #: SM cycles the card spins before each timed launch (~0.5 ms)
 SPIN_CYCLES = 1_000_000
+
+
+def probe_dir() -> Path:
+    """Where the probe's patched copies, libraries and SASS land."""
+    return build_dir() / "probe"
 
 _PROBE_DECL = """
 #include <cuda_runtime.h>
@@ -253,12 +257,13 @@ def _build(sources: dict[str, tuple[str, list[str]]],
            logs: dict | None = None) -> dict[str, ctypes.CDLL]:
     """{name: (source text, extra nvcc flags)} -> loaded libraries, one
     nvcc per source, all started together (compiler output into `logs`)."""
-    PROBE_DIR.mkdir(parents=True, exist_ok=True)
+    probe = probe_dir()
+    probe.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, (text, flags) in sources.items():
-        cu = PROBE_DIR / f"{name}.cu"
+        cu = probe / f"{name}.cu"
         cu.write_text(text)
-        out = PROBE_DIR / f"lib{name}.so"
+        out = probe / f"lib{name}.so"
         procs[name] = (subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(out), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
@@ -302,7 +307,6 @@ def _median_ms(fn, flush, read_flush: bool = False) -> float:
 _SIG_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 #: the earlier kernel's, on a gathered cnt_fit: 10 pointers, G D R, stream
 _OLD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-SASS_OUT = PROBE_DIR / "value_kernel.sass"
 #: the value kernel's opcodes counted: MUFU (one a division), FCHK, F2F
 #: and F2FP (bf16 roundings), STG, CALL and BRA
 VALUE_OPS = ("MUFU", "FCHK", "F2F", "F2FP", "STG", "CALL", "BRA")
@@ -312,9 +316,10 @@ MEMORY_OPS = ("LDS", "STS", "ATOMS", "LD", "ST", "ATOM", "LDG", "STG", "RED",
               "BAR", "WARPSYNC", "VOTE", "SHFL", "MATCH", "BRA")
 
 
-def _sass_counts(lib_path: Path, out: Path = SASS_OUT,
+def _sass_counts(lib_path: Path, out: Path | None = None,
                  keys=VALUE_OPS) -> None:
-    """cuobjdump's SASS of a kernel library: written whole to `out`, and
+    """cuobjdump's SASS of a kernel library: written whole to `out`
+    (default probe_dir()/value_kernel.sass), and
     per kernel instance (e.g. value_kernel<bf16, R, bits>) its instruction
     count and those of the opcodes `keys`."""
     from torch.utils.cpp_extension import CUDA_HOME
@@ -322,6 +327,7 @@ def _sass_counts(lib_path: Path, out: Path = SASS_OUT,
     text = subprocess.run(
         [str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass", str(lib_path)],
         capture_output=True, text=True, check=True, timeout=300).stdout
+    out = out or probe_dir() / "value_kernel.sass"
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(text)
     print(f"SASS of {lib_path.name}: {out} ({len(text.splitlines())} lines)")
@@ -337,7 +343,7 @@ def _sass_counts(lib_path: Path, out: Path = SASS_OUT,
 
 def sass_section(paths: list[str]) -> None:
     """Each CUDA source in `paths` built with the kernels' own flags, its
-    SASS written to PROBE_DIR/sass_<i>_<stem>.sass and its memory, barrier
+    SASS written to probe_dir()/sass_<i>_<stem>.sass and its memory, barrier
     and warp opcodes counted per kernel instance: two versions of a kernel
     side by side (e.g. `git show <commit>:grove_tpu_torch/csrc/commit_scan.cu`
     beside the current file). Needs nvcc, not a card."""
@@ -345,7 +351,7 @@ def sass_section(paths: list[str]) -> None:
     _build({name: (Path(path).read_text(), []) for name, path in names.items()})
     for name, path in names.items():
         print(f"{path}:")
-        _sass_counts(PROBE_DIR / f"lib{name}.so", PROBE_DIR / f"{name}.sass",
+        _sass_counts(probe_dir() / f"lib{name}.so", probe_dir() / f"{name}.sass",
                      MEMORY_OPS)
 
 

@@ -20,7 +20,7 @@ import os
 import subprocess
 from pathlib import Path
 
-from ..build import BUILD_DIR
+from ..build import build_dir
 
 SOURCE = Path(__file__).resolve().with_name("serial_scorer.cpp")
 
@@ -56,7 +56,7 @@ def library_path() -> Path:
     compiler and the flags."""
     key = SOURCE.read_bytes() + " ".join((CXX, *CXX_FLAGS)).encode()
     digest = hashlib.sha256(key).hexdigest()
-    return BUILD_DIR / f"libserial_scorer-{digest[:16]}.so"
+    return build_dir() / f"libserial_scorer-{digest[:16]}.so"
 
 
 def compile_shared(source: Path, out: Path, flags, what: str) -> Path:
@@ -65,7 +65,7 @@ def compile_shared(source: Path, out: Path, flags, what: str) -> Path:
     build fails."""
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [CXX, *flags, str(source), "-o", str(tmp)]
     try:

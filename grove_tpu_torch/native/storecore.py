@@ -22,7 +22,7 @@ import sysconfig
 from pathlib import Path
 from typing import Any, Optional
 
-from ..build import BUILD_DIR
+from ..build import build_dir
 from .build import compile_shared
 
 SOURCE = Path(__file__).resolve().with_name("storecore.c")
@@ -43,7 +43,7 @@ def library_path() -> Path:
     tag = str(sysconfig.get_config_var("SOABI") or sys.version)
     key = SOURCE.read_bytes() + " ".join((*_flags(), tag)).encode()
     digest = hashlib.sha256(key).hexdigest()
-    return BUILD_DIR / f"storecore-{digest[:16]}.so"
+    return build_dir() / f"storecore-{digest[:16]}.so"
 
 
 def load_storecore() -> Optional[Any]:

@@ -1,9 +1,8 @@
 """Observability: the metrics registry, the span tracer, the decision
-log with its unsat diagnosis, the event recorder and the structured
-logger.
+log with its unsat diagnosis, the event recorder, the structured logger
+and the SLO engine.
 
-The counterpart of grove_tpu/observability/__init__.py. The SLO engine
-belongs to the service layer and arrives with it.
+The counterpart of grove_tpu/observability/__init__.py.
 """
 
 from .events import ClusterEvent, EventRecorder
@@ -20,6 +19,7 @@ from .explain import (
 )
 from .logging import Logger
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry
+from .slo import SLOEngine
 from .tracing import NOOP_TRACER, Span, Tracer
 
 __all__ = [
@@ -33,6 +33,7 @@ __all__ = [
     "Logger",
     "MetricsRegistry",
     "NOOP_TRACER",
+    "SLOEngine",
     "Span",
     "Tracer",
     "UnsatCode",

@@ -2,20 +2,24 @@
 
 The reference serves pprof from its controller manager when profiling is
 enabled (operator/internal/controller/manager.go:42-44,114-119). This
-package is an in-process control plane, so the same visibility ships as
-structured DUMPS instead of a sampling profiler:
+package is an in-process control plane plus one long-lived service, so the
+same visibility ships as structured DUMPS instead of a sampling profiler:
 
   Harness.debug_dump()         — controller-manager state: per-controller
                                  reconcile totals/errors and duration
                                  percentiles, workqueue/requeue depth,
                                  event-log cursor + horizon, store object
                                  counts, scheduler/engine cache state
+  grove.Placement/Debug (gRPC) — the placement service's state: cached
+                                 topology epochs + engine shapes, solve
+                                 counters, process uptime
 
-The counterpart of grove_tpu/observability/debug.py. The sections of the
-parts not ported yet (ROADMAP item 8: the HA standby, federation, the SLO
-engine) never appear, as in the reference when those parts are off, and
-the placement service's Debug fetch (the reference's `main`) waits for
-the service.
+Both are plain JSON-able dicts; `docs/operations.md` documents the
+surfaces and `python -m grove_tpu_torch.observability.debug --address
+...` fetches the service dump from a shell (it needs grpc; in-process,
+`PlacementService.debug(b"")` returns the same bytes).
+
+The counterpart of grove_tpu/observability/debug.py.
 """
 
 from __future__ import annotations
@@ -133,12 +137,33 @@ def harness_dump(harness) -> dict[str, Any]:
         # the tenant-queue arithmetic behind admission/fairness decisions
         # (tenancy/): shares, entitlements, deficits, budgets
         out["tenancy"] = tenancy.debug_state()
+    standby = getattr(harness.cluster, "standby", None)
+    if standby is not None:
+        # the HA log-shipping standby (cluster/replication.py): applied
+        # position, lag, terms, ack-mode posture — the runbook's first
+        # stop for "can I promote right now, and what would it cost"
+        out["replication"] = standby.debug_state()
     serving = getattr(harness.cluster, "serving", None)
     if serving is not None:
         # the elastic-serving loop (serving/): trace shape,
         # workload tiers, injected spikes, metrics-pipeline occupancy —
         # the runbook's first stop for "why didn't the HPA scale"
         out["serving"] = serving.debug_state()
+    federation = getattr(harness, "federation", None)
+    if federation is not None:
+        # this harness is one member cell of a federation
+        # (federation/): cell identity + lifecycle state, fence
+        # term, drain progress, and every wedged gang's home cluster and
+        # routing verdict — the runbook's first stop for "which cluster
+        # owns this gang, and did the router ever admit it"
+        out["federation"] = federation.debug_state()
+    slo = getattr(harness.cluster, "slo", None)
+    if slo is not None:
+        # the continuous SLO evaluator (observability/slo.py): the
+        # per-tenant scorecard — budgets, burn rates, alert states and
+        # transition history (render with
+        # python -m grove_tpu_torch.observability.slo)
+        out["slo"] = slo.scorecard()
     return out
 
 
@@ -169,3 +194,32 @@ def tracing_dump(cluster) -> dict[str, Any]:
         # bind, like the phase flush above).
         out["critical_path"] = tracer.flush_critical_paths(cluster.metrics)
     return out
+
+
+def main() -> int:  # pragma: no cover - thin CLI
+    """Fetch the placement service's Debug dump from a shell:
+    python -m grove_tpu_torch.observability.debug --address 127.0.0.1:7077"""
+    import argparse
+    import json
+
+    import grpc
+
+    ap = argparse.ArgumentParser(
+        description="dump grove placement-service debug state"
+    )
+    ap.add_argument("--address", default="127.0.0.1:7077")
+    ap.add_argument("--ca", default=None, help="ca.pem path for TLS")
+    args = ap.parse_args()
+    if args.ca:
+        with open(args.ca, "rb") as fh:
+            creds = grpc.ssl_channel_credentials(root_certificates=fh.read())
+        channel = grpc.secure_channel(args.address, creds)
+    else:
+        channel = grpc.insecure_channel(args.address)
+    debug = channel.unary_unary("/grove.Placement/Debug")
+    print(json.dumps(json.loads(debug(b"", timeout=10.0)), indent=2))
+    return 0
+
+
+if __name__ == "__main__":  # pragma: no cover
+    raise SystemExit(main())

@@ -18,8 +18,9 @@ Beside them, the port's own cases: `ManagerCrash` passes through the
 port's reconcile error path as a `BaseException` (neither the manager nor
 the scheduler catches it, nor does the check that the card is present),
 a `TransientFault` is a retried reconcile error and not a card failure,
-and a dispatched solve that a crash abandons is cancelled with its
-engine released.
+a dispatched solve that a crash abandons is cancelled with its engine
+released, and a standby-armed plan (promotions, standby crashes, dual
+leaders, replication stalls) runs in lockstep on a replicated plane.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from grove_tpu_torch.controller.runtime import (
 
 from test_torch_harness import (  # noqa: F401  (_compare_at_teardown: autouse)
     _PAIRS,
+    PATH_ROOTS,
     LockstepHarness,
     _compare_at_teardown,
     inherit,
@@ -199,11 +201,35 @@ def test_chaos_harness_without_device_solves_on_the_card():
                           nodes=to_port(ref_chaos.make_nodes(4)))
 
 
-def test_standby_fault_waits_for_replication():
-    """The HA-replication faults reach `promote_standby`, which raises
-    until replication is ported (ROADMAP item 8e); without a standby
-    they never draw."""
-    ch = _port_chaos(TorchPlan(seed=0, standby_promotion_rate=1.0))
-    assert ch._standby is None
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        ch.standby_promotion()
+def test_standby_fault_waits_for_replication(tmp_path):
+    """The HA-replication faults (ROADMAP item 8e raised until it was
+    ported; the test keeps its name from then): a plan armed with standby
+    promotions, standby crashes, dual leaders and replication stalls runs
+    in lockstep on a journaled, replicated plane, every step's plane and
+    fault counts equal, converging to the fault-free fixpoint with the
+    standby caught up; the port's promotions rebuild its engines on the
+    CPU."""
+    path, pair = ls.twin_tmp_path(tmp_path)
+    try:
+        plan = ref_chaos.FaultPlan.from_seed(
+            0, standby_promotion_rate=0.3, standby_crash_rate=0.2,
+            dual_leader_rate=0.2, replication_stall_rate=0.2)
+        ch = ls.LockstepChaosHarness(
+            plan, nodes=ref_chaos.make_nodes(8), config={
+                "durability": {"wal_dir": str(path / "wal"),
+                               "fsync": "never"},
+                "replication": {"enabled": True, "ack_mode": "semi-sync",
+                                "standby_wal_dir": str(path / "standby")}})
+        ref_chaos.quiet(ch._j)
+        ref_chaos.quiet(ch._t)
+        ch.apply(ref_chaos.chaos_workload())
+        ch.run_chaos()
+        assert ch._t.standby_promotions == ch._j.standby_promotions > 0
+        standby = ch._t.harness.cluster.standby
+        assert standby is not None and standby.lag_records() == 0
+        assert ls.check_invariants(ch.raw_store) == []
+        assert all(s._engine_kwargs["device"] == "cpu"
+                   for s in ch._t.harness.schedulers())
+        ch.compare("end")
+    finally:
+        PATH_ROOTS.remove(pair)

@@ -220,13 +220,33 @@ class TestConfigChangesBehavior:
 
     @pytest.mark.parametrize("section", ["replication", "slo"])
     def test_unported_sections_raise(self, section):
-        """Validation lets replication on only with a durable store, which
-        raises first; the section is switched on after the load to reach
-        its own check."""
-        cfg = load_operator_config({})
-        getattr(cfg, section).enabled = True
-        with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-            Cluster(nodes=make_nodes(2), config=cfg)
+        """The two sections that raised NotImplementedError until ROADMAP
+        items 8d and 8e were ported (the test keeps its name from then)
+        now build as the reference's do: switched on after the load (the
+        validation lets replication on only with a durable store), the SLO
+        section builds the cluster's SLO engine on its metrics and clock,
+        and replication without a journal builds no standby and no link,
+        in both packages alike."""
+        from grove_tpu.api.config import load_operator_config as jax_load
+        from grove_tpu.cluster.cluster import Cluster as JaxCluster
+        from grove_tpu.cluster import make_nodes as jax_nodes
+
+        clusters = []
+        for load, cls, nodes in ((jax_load, JaxCluster, jax_nodes),
+                                 (load_operator_config, Cluster, make_nodes)):
+            cfg = load({})
+            getattr(cfg, section).enabled = True
+            clusters.append(cls(nodes=nodes(2), config=cfg))
+        jax_c, c = clusters
+        for have in (jax_c, c):
+            if section == "slo":
+                assert have.slo is not None
+                assert have.slo.metrics is have.metrics
+                assert have.slo.clock is have.clock
+            else:
+                assert have.standby is None and have.replication_link is None
+        if section == "slo":
+            assert c.slo.scorecard() == jax_c.slo.scorecard()
 
     def test_workload_defaults_flow_into_admission(self):
         from test_cluster import simple_pcs

@@ -51,7 +51,8 @@ def _reference_in_lockstep():
 
 
 # the reference's defrag cases (its config and ledger cases build no
-# harness; the migration-storm chaos waits for ROADMAP item 8)
+# harness; the migration-storm chaos is later lockstep work, ROADMAP
+# item 8h)
 globals().update(inherit(
     ref_defrag, "Defrag",
     classes=("TestWhatIf", "TestMigrationMachinery", "TestDefragSweep",

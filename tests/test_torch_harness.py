@@ -29,22 +29,24 @@ module's `Harness` is replaced by `LockstepHarness` while this module
 runs, so every inherited test drives both packages. The Harness cases of
 test_config, test_tenancy and test_serving, test_hierarchy's scheduler
 case and the examples' workloads (`examples/*.py`'s `build()`, scaled,
-crashed and deleted) run the same way. Not inherited here: the cases of
-those files that reach a part the port has not yet (ROADMAP item 8d-8g:
-the SLO engine, HA replication, federation), and their chaos cases,
-which are the next slice's lockstep work. The sharded plane, the durable
-store and chaos have their own files (tests/test_torch_sharding.py,
-test_torch_durability.py, test_torch_chaos.py), which reuse this file's
-lockstep; a durable store's wal_dir is carried into the port as a twin
-directory (`PATH_ROOTS`), and its byte counts are left out of the
-comparison (`_WALLS`).
+crashed and deleted) run the same way. Not inherited here: the chaos
+cases of those files, which are later lockstep work. The sharded plane,
+the durable store, chaos, the SLO engine, HA replication, the placement
+service and federation have their own files (tests/test_torch_sharding.py,
+test_torch_durability.py, test_torch_chaos.py, test_torch_slo.py,
+test_torch_replication.py, test_torch_service.py,
+test_torch_federation.py), which reuse this file's lockstep; a durable
+store's wal_dir is carried into the port as a twin directory
+(`PATH_ROOTS`), and its byte counts are left out of the comparison
+(`_WALLS`).
 
 Beside them: the lockstep sees a divergence; a Harness with no device
-solves on the card (and fails without one); each entry point of item
-8d-8g raises NotImplementedError naming the item, and those of 8a-8b
-(`controllers.shards > 1`, `cold_restart`, `recover`) run in lockstep;
-`debug_dump()` has the reference's sections; the explain CLI renders its
-demos as the reference's does.
+solves on the card (and fails without one); the entry points that raised
+until their slice of ROADMAP item 8 was ported (`controllers.shards > 1`,
+`cold_restart`, `recover`, `promote_standby`, `adopt_workloads`, the
+`slo_*` sweeps and scorecard) run in lockstep; `debug_dump()` has the
+reference's sections; the explain CLI renders its demos as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -197,13 +199,14 @@ def _key(k):
 
 
 #: fields that time walls, left out of `_tree` (a dict of walls keeps its
-#: count, as `metric_values` keeps a wall histogram's), and the durable
+#: count, as `metric_values` keeps a wall histogram's; a standby's
+#: `ship_seconds` is its apply wall), and the durable
 #: store's byte counts: its records are pickles that name each package's
 #: own modules, so their sizes differ (tests/test_torch_durability.py
 #: holds that difference, and everything else, equal)
 _WALLS = {"wall_time": None, "duration_seconds": "count",
           "wall_seconds": None, "wal_bytes_total": None,
-          "segment_bytes": None}
+          "segment_bytes": None, "ship_seconds": None}
 #: the port's own debug section (its graph cache), which the JAX package
 #: has no counterpart of
 _PORT_ONLY = frozenset({"fused_graphs"})
@@ -313,9 +316,10 @@ class Mirror:
             # a live object's own container: writes must reach both
             return _mirror(vj, vt, self._pair)
         if type(self._j).__name__ == "Histogram" and \
-                self._j.name.endswith("_seconds"):
+                self._j.name.endswith("_seconds") and name != "observe":
             # a histogram of walls: its sum and percentiles differ by
-            # run; the planes hold its counts equal
+            # run; the planes hold its counts equal (an observation a
+            # test makes goes to both)
             return vj
         if getattr(self._j, "name", None) in (_WAL_BYTES, _IO_BYTES):
             # a count of bytes in each package's own layout (`_WALLS`)
@@ -416,7 +420,7 @@ def _both(fj, ft):
 #: the harness steps after which the planes are compared
 STEPS = frozenset({
     "settle", "advance", "autoscale", "maybe_autoscale", "autoscale_sweep",
-    "defrag_sweep", "maybe_defrag", "cold_restart",
+    "defrag_sweep", "maybe_defrag", "cold_restart", "promote_standby",
 })
 
 #: the durable store's byte counter (see `_WALLS`)
@@ -657,8 +661,8 @@ for _mod, _prefix in ((ref_basic, "Basic"), (ref_gang, "Gang"),
     globals().update(inherit(_mod, _prefix))
 del _mod, _prefix
 
-# test_config's Harness cases (its decode cases build no harness; the
-# durable store's knobs wait for ROADMAP item 8)
+# test_config's Harness cases (its decode cases build no harness;
+# tests/test_torch_config.py holds the two packages' decoders equal)
 globals().update(inherit(
     ref_config, "Config",
     classes=("TestConfigDecode", "TestConfigChangesBehavior",
@@ -667,13 +671,15 @@ globals().update(inherit(
     # a JAX engine class as engine_cls: test_torch_config.py holds the
     # solver knobs reaching the port's engine
     leave_out={"TestConfigChangesBehavior": ("test_solver_knobs_reach_engine",)}))
-# test_tenancy's Harness and engine cases (the skew chaos waits for item 8)
+# test_tenancy's Harness and engine cases (the skew chaos is later lockstep
+# work, ROADMAP item 8h)
 globals().update(inherit(
     ref_tenancy, "Tenancy",
     classes=("TestFairnessOrdering", "TestQuotaShedding",
              "TestPodGangTierAdmission", "TestTenantSeriesHygiene",
              "TestPreemptionTenancy", "TestDRF", "TestReviewRegressions")))
-# test_serving's Harness cases (the serving chaos waits for item 8)
+# test_serving's Harness cases (the serving chaos is later lockstep work,
+# ROADMAP item 8h)
 globals().update(inherit(
     ref_serving, "Serving",
     classes=("TestServingConfig", "TestScaleLoop",
@@ -772,24 +778,6 @@ def test_harness_without_device_solves_on_the_card():
     assert h.scheduler._engine_kwargs["device"] == "cpu"
 
 
-ITEM_8 = {
-    "promote_standby": lambda h: h.promote_standby(),
-    "adopt_workloads": lambda h: h.adopt_workloads([]),
-    "slo_sweep": lambda h: h.slo_sweep(),
-    "maybe_slo_sweep": lambda h: h.maybe_slo_sweep(),
-    "slo_scorecard": lambda h: h.slo_scorecard(),
-}
-
-
-@pytest.mark.parametrize("entry", sorted(ITEM_8))
-def test_item_8_entry_points_raise(entry):
-    """The parts still to port (HA replication, federation, the SLO
-    engine) raise NotImplementedError naming ROADMAP item 8."""
-    h = TorchHarness(nodes=to_port(ref_basic.make_nodes(2)), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        ITEM_8[entry](h)
-
-
 def register_twin(path: Path) -> tuple[str, str]:
     """Make `path`'s port twin (a sibling directory) and register the
     pair in `PATH_ROOTS`; the caller removes it after the test."""
@@ -822,13 +810,40 @@ def _settled(config):
 
 
 ITEM_8_PORTED = {
-    # items 8a-8b: these raised NotImplementedError until they were
-    # ported; now they run in lockstep with the reference
+    # items 8a-8b and 8d-8g: these raised NotImplementedError until they
+    # were ported; now they run in lockstep with the reference
     "sharded control plane": lambda tmp: _settled(
         {"controllers": {"shards": 2}}),
     "cold_restart": lambda tmp: _settled(_durable(tmp)).cold_restart(),
     "recover": lambda tmp: _recovered(tmp),
+    "promote_standby": lambda tmp: _settled(_replicated(tmp)).promote_standby(
+        catch_up=False),
+    "adopt_workloads": lambda tmp: _adopted(tmp),
+    "slo_sweep": lambda tmp: _settled(_SLO).slo_sweep(),
+    "maybe_slo_sweep": lambda tmp: _settled(_SLO).maybe_slo_sweep(),
+    "slo_scorecard": lambda tmp: _settled(_SLO).slo_scorecard(),
 }
+
+#: the SLO engine on, one bind-latency objective (observability/slo.py)
+_SLO = {"slo": {"enabled": True, "objectives": [
+    {"name": "bind-p99", "kind": "bind_latency_p99", "target": 0.9,
+     "threshold_seconds": 1.0}]}}
+
+
+def _replicated(tmp_path) -> dict:
+    return _durable(tmp_path, replication={
+        "enabled": True, "ack_mode": "semi-sync",
+        "standby_wal_dir": str(tmp_path / "standby")})
+
+
+def _adopted(tmp_path):
+    """A set recovered from another cluster's history, adopted here and
+    settled (federation's drain path)."""
+    h = _settled({})
+    pcs = ref_basic.simple_pcs(replicas=1, name="drained")
+    out = h.adopt_workloads([pcs], source="c9")
+    h.settle()
+    return out
 
 
 def _recovered(tmp_path):
@@ -842,9 +857,11 @@ def _recovered(tmp_path):
 
 @pytest.mark.parametrize("entry", sorted(ITEM_8_PORTED))
 def test_item_8_ported_entry_points_work_in_lockstep(entry, port_paths):
-    """The sharded control plane (8a) and the durable store's recovery
-    (8b): the calls that raised before they were ported run in both
-    packages, the planes equal after every step."""
+    """The sharded control plane (8a), the durable store's recovery (8b),
+    the SLO engine (8d), the standby failover (8e) and federation's
+    adoption (8g): the calls that raised before they were ported run in
+    both packages, their results and the planes equal after every
+    step."""
     out = ITEM_8_PORTED[entry](port_paths)
     assert out is not None
 

@@ -29,6 +29,7 @@ from grove_tpu.solver.engine import DomainSpace as JaxDomainSpace
 from grove_tpu.solver.problem import UNRESOLVED_LEVEL
 from grove_tpu.solver.serial import gang_sort_key as jax_gang_sort_key
 
+from grove_tpu_torch import build
 from grove_tpu_torch.native import build as native_build
 from grove_tpu_torch.native import repair_native, solve_serial_native
 from grove_tpu_torch.solver import solve_serial
@@ -225,7 +226,7 @@ def test_repair_native_bit_equal_to_jax(case, k):
 def fresh_native(monkeypatch, tmp_path):
     """The native build with no cached library: a private build directory
     and no loaded handle."""
-    monkeypatch.setattr(native_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_cache_dir", tmp_path)
     monkeypatch.setattr(native_build, "_LIB", None)
     return native_build
 
@@ -256,9 +257,9 @@ def test_abi_mismatch_raises(fresh_native, monkeypatch):
     assert fresh_native._LIB is None
 
 
-def test_build_is_cached_by_content(fresh_native):
+def test_build_is_cached_by_content(fresh_native, tmp_path):
     path = fresh_native.build()
-    assert path.parent == fresh_native.BUILD_DIR and path.exists()
+    assert path.parent == build.build_dir() == tmp_path and path.exists()
     assert fresh_native.build() == path == fresh_native.library_path()
     lib = fresh_native.load_library()
     assert fresh_native.load_library() is lib

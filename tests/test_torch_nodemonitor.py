@@ -9,7 +9,7 @@ standby over one store) run here against `LockstepHarness`
 (test_torch_harness.py): both packages equal after every step in settled
 fingerprint, pods, PodGangs, events, metrics (less the engine's io
 bytes), decision records and object counts. The node-fault chaos cases
-are the next slice's lockstep work (ROADMAP item 8); the sharded plane's
+are later lockstep work (ROADMAP item 8h); the sharded plane's
 lease cases run in tests/test_torch_sharding.py.
 
 Beside them, seeded lifecycles with the short windows of the verify

@@ -18,8 +18,8 @@ tests/test_streaming.py's own tests, run here against both packages:
   planes compared after every step and at the end of each test.
 
 TestChaos is left out: its seeded storms and stalls drive
-`grove_tpu.chaos` (`FaultPlan`, `ChaosHarness`), which waits for the
-port's chaos (ROADMAP item 8).
+`grove_tpu.chaos` (`FaultPlan`, `ChaosHarness`) and are later lockstep
+work (ROADMAP item 8h).
 """
 
 from __future__ import annotations

@@ -93,9 +93,9 @@ def both(jax_fn, port_fn):
     """`jax_fn` on the JAX side of its Mirror arguments and `port_fn` on
     the port's, the results held equal; returns the JAX package's."""
 
-    def run(*args):
-        want = jax_fn(*_to_jax(args))
-        got = port_fn(*to_port(args))
+    def run(*args, **kwargs):
+        want = jax_fn(*_to_jax(args), **_to_jax(kwargs))
+        got = port_fn(*to_port(args), **to_port(kwargs))
         assert _tree(got) == _tree(want), (
             f"{jax_fn.__name__}: port != JAX at",
             lh._first_difference(_tree(want), _tree(got)))
@@ -248,12 +248,21 @@ def twin_open(path, mode="r", *args, **kwargs):
 
 class _TwinOS:
     """`os` for a test module: `listdir` of a directory under
-    `PATH_ROOTS` must list the same names in the port's twin."""
+    `PATH_ROOTS` must list the same names in the port's twin, and
+    `unlink` of a file there removes its twin too."""
 
     path = os.path
 
     def __getattr__(self, name):
         return getattr(os, name)
+
+    @staticmethod
+    def unlink(path):
+        """Remove a file in both trees (a segment a test drops by hand)."""
+        twin = port_path(os.fspath(path))
+        if twin != os.fspath(path):
+            os.unlink(twin)
+        os.unlink(path)
 
     @staticmethod
     def listdir(path):
