@@ -102,6 +102,11 @@ class PlacementService:
         # check-evict-insert must be atomic (double-pop at capacity /
         # double engine build otherwise)
         self._lock = threading.Lock()
+        # an engine's solve is not reentrant (its resident free state,
+        # staged rows and graph buffers belong to one solve at a time):
+        # two Solve RPCs at once, such as a client's dispatch and the
+        # fresh solve behind it, are served one after the other
+        self._solve_lock = threading.Lock()
 
     @staticmethod
     def _abort(context, code: str, message: str, cause: Exception):
@@ -159,7 +164,14 @@ class PlacementService:
             )
             self._abort(context, "INVALID_ARGUMENT", str(err), err)
         try:
-            result = engine.solve(gangs, free=free)
+            with self._solve_lock:
+                # each request's free matrix is the client's, changed in
+                # rows the engine was never told of: unknown scope, so
+                # the sync diffs all of it (note_free_rows' contract;
+                # the engine would otherwise re-read only the rows of its
+                # own last commits and score on stale ones)
+                engine.note_free_rows(None)
+                result = engine.solve(gangs, free=free)
         except Exception as err:
             # a decodable-but-inconsistent payload (bad group indexing,
             # mask widths, ...) must not surface as an opaque UNKNOWN

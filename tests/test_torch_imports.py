@@ -1,4 +1,5 @@
-"""grove_tpu_torch stands alone: it imports neither jax nor grove_tpu.
+"""grove_tpu_torch stands alone: it imports neither jax nor grove_tpu (nor
+bench.py, the root `bench` module).
 
 Checked twice: a fresh interpreter imports every module of the package
 and finds neither in sys.modules, and an AST scan of every
@@ -16,7 +17,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "grove_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "grove_tpu")
+#: the JAX package, JAX, and bench.py (the root module `bench`, which
+#: imports the JAX package): grove_tpu_torch.bench is the port's own
+FORBIDDEN = ("jax", "jaxlib", "grove_tpu", "bench")
 
 
 def _modules():
@@ -113,3 +116,25 @@ def test_mesh_and_stream_modules_are_scanned():
     assert out.stdout.split() == [
         "['ShardedPlacementEngine',", "'initialize_multihost',",
         "'make_solver_mesh',", "'sharded_score']", "True"], out.stdout
+
+
+def test_bench_package_import_runs_nothing():
+    """Importing grove_tpu_torch.bench and every module of it (its CLI and
+    `__main__` too) in a fresh interpreter prints nothing, runs no
+    regime, loads no root `bench` and initialises no CUDA."""
+    mods = [m for m in _modules() if m.startswith("grove_tpu_torch.bench")]
+    assert {"grove_tpu_torch.bench.cli", "grove_tpu_torch.bench.__main__",
+            "grove_tpu_torch.bench.controlplane"} <= set(mods)
+    code = (
+        "import importlib, sys, torch\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "sys.stderr.write(repr(['bench' in sys.modules, "
+        "torch.cuda.is_initialized()]))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120, check=True,
+    )
+    assert out.stdout == ""
+    assert out.stderr.strip().splitlines()[-1] == "[False, False]", out.stderr

@@ -215,6 +215,11 @@ class CheckedRemote:
         if free is None:
             free = self._snapshot.free.copy()
         local_free = free.copy()
+        # the caller's free may differ from the last solve's in any row:
+        # unknown scope, as the port's server declares it for every
+        # request (fault R7, ROADMAP.md §3: the reference's server does
+        # not, and its engine then scores on the rows it last committed)
+        self._local.note_free_rows(None)
         want = self._local.solve(gangs, free=local_free, fairness=fairness)
         got = self._port.solve(self._gangs(gangs), free=free,
                                dispatch=dispatch, fairness=fairness)
@@ -488,3 +493,62 @@ def test_chip_smoke_imports_no_service_extra():
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             roots.add(node.module.split(".")[0])
     assert not roots & {"grpc", "cryptography"}
+
+
+def test_service_solves_each_request_on_its_own_free():
+    """Fault R7 not copied: the server declares every request's free as
+    unknown to its long-lived engine, and serves one Solve at a time, so
+    each answer equals a fresh engine's on that free, whatever the
+    engine solved before and however many requests arrive at once."""
+    import sys
+    import threading
+
+    import numpy as np
+
+    from grove_tpu_torch import stress
+    from grove_tpu_torch.solver import PlacementEngine as TorchEngine
+
+    snap = stress.make_cluster(256)
+    gangs = stress.make_gangs(32)
+    svc = torch_server.PlacementService(device="cpu")
+    epoch = svc.sync(torch_codec.encode_topology_snapshot(snap)).decode()
+    rng = np.random.default_rng(3)
+    frees = []
+    for _ in range(12):
+        f = snap.free.copy()
+        rows = rng.choice(snap.num_nodes, 24, replace=False)
+        f[rows] *= rng.uniform(0.3, 1.0, size=(24, 1)).astype(np.float32)
+        frees.append(f)
+    by_name = {g.name: g for g in gangs}
+
+    def view(res):
+        return sorted((n, p.node_indices.tolist())
+                      for n, p in res.placed.items())
+
+    want = [view(TorchEngine(snap, device="cpu").solve(gangs, free=f.copy()))
+            for f in frees]
+    got = [None] * len(frees)
+
+    def run(i):
+        resp = svc.solve(torch_codec.encode_solve_request(
+            epoch, gangs, frees[i].copy()))
+        got[i] = view(torch_codec.decode_solve_response(
+            resp, by_name, list(snap.node_names)))
+
+    for i in range(len(frees)):  # one after another: history alone
+        run(i)
+    assert got == want
+    got = [None] * len(frees)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(frees))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert got == want

@@ -187,8 +187,8 @@ globals().update(inherit(
     ref_tracing, "Tracing", classes=("TestChromeTrace",),
     only={"TestChromeTrace": ("test_cli_converts_trace_and_flight_dumps",)}))
 globals().update(inherit(
-    ref_causal, "CausalTrace", classes=("TestTelescoping",),
-    only={"TestTelescoping": ("test_trace_cli_prints_critical_path",)}))
+    ref_causal, "CausalTrace", classes=("TestFlowEvents",),
+    only={"TestFlowEvents": ("test_trace_cli_prints_critical_path",)}))
 
 
 # -- the port's own cases -------------------------------------------------------------
