@@ -570,6 +570,61 @@ def bench_solve(args, device=None) -> int:
     return 1 if (trace_failures or agg_failures) else 0
 
 
+def churn_draw(rng, n: int, pool: int):
+    """One round of `bench_equivalence`'s seeded bind/unbind churn from
+    its generator: (24 distinct node rows, a [24, 1] float32 scale of
+    their free in [0.4, 1.1), the sorted indices of the round's subset
+    of a backlog of `pool` gangs)."""
+    rows = rng.choice(n, size=min(24, n), replace=False)
+    scale = rng.uniform(0.4, 1.1, size=(rows.size, 1)).astype(np.float32)
+    picks = sorted(rng.choice(pool, size=min(max(8, pool // 8), pool),
+                              replace=False))
+    return rows, scale, picks
+
+
+#: `bench_equivalence`'s candidate engines (name -> knobs), each held
+#: bitwise against the full re-encode reference
+EQUIVALENCE_CANDIDATES = {
+    "delta": dict(state_cache=True, state_verify=True, fused=False,
+                  incremental=False),
+    "fused": dict(state_cache=True, state_verify=True, fused=True,
+                  incremental=False),
+    "inc": dict(state_cache=True, state_verify=True, fused=True,
+                incremental=True),
+    # the kernel tiers (PR: one-kernel solve): the fused program
+    # with the fp32 value kernel (K1), then additionally the
+    # on-device greedy commit — both BITWISE against the reference
+    # (the fp32 kernel replicates the plain arithmetic op-for-op; the
+    # commit scan replays the candidate walk at aggregate
+    # granularity, conflicts fall to the same serial net). On a
+    # flat sharded mesh the knobs resolve off (capability miss) and
+    # these rows degenerate into fused re-runs — bench_equivalence's
+    # kernel coverage guards are gated accordingly.
+    "pallas": dict(state_cache=True, state_verify=True, fused=True,
+                   incremental=False, pallas_core=True),
+    "pallas-commit": dict(state_cache=True, state_verify=True, fused=True,
+                          incremental=False, pallas_core=True,
+                          device_commit=True),
+}
+
+
+def equivalence_draws(n: int, gangs) -> tuple:
+    """`bench_equivalence`'s seed-7 generator and what sections 3-6 draw
+    from it, in the gate's order: (generator, one stale row per
+    candidate, section 4's four churn rounds, the fairness weights, the
+    rebind's flipped row). The generator is left where section 7 takes
+    it up, so a caller replays the hierarchical sections' churn exactly
+    as the gate draws it."""
+    rng = np.random.default_rng(7)
+    stale = {name: int(rng.integers(n)) for name in EQUIVALENCE_CANDIDATES}
+    churn = [churn_draw(rng, n, len(gangs)) for _ in range(4)]
+    fair = {
+        g.name: round(float(rng.uniform(-0.5, 1.5)), 6) for g in gangs
+    }
+    flip = int(rng.integers(n))
+    return rng, stale, churn, fair, flip
+
+
 def bench_equivalence(args, snapshot, gangs, mk_engine,
                       device=None) -> int:
     """Placement-equivalence gate (`--equivalence`, run by CI): solve
@@ -612,31 +667,11 @@ def bench_equivalence(args, snapshot, gangs, mk_engine,
     import dataclasses
 
     eng_f = mk_engine(state_cache=False, fused=False, incremental=False)
-    candidates = {
-        "delta": mk_engine(state_cache=True, state_verify=True,
-                           fused=False, incremental=False),
-        "fused": mk_engine(state_cache=True, state_verify=True,
-                           fused=True, incremental=False),
-        "inc": mk_engine(state_cache=True, state_verify=True,
-                         fused=True, incremental=True),
-        # the kernel tiers (PR: one-kernel solve): the fused program
-        # with the fp32 value kernel (K1), then additionally the
-        # on-device greedy commit — both BITWISE against the reference
-        # (the fp32 kernel replicates the plain arithmetic op-for-op; the
-        # commit scan replays the candidate walk at aggregate
-        # granularity, conflicts fall to the same serial net). On a
-        # flat sharded mesh the knobs resolve off (capability miss) and
-        # these rows degenerate into fused re-runs — the kernel
-        # coverage guards below are gated accordingly.
-        "pallas": mk_engine(state_cache=True, state_verify=True,
-                            fused=True, incremental=False,
-                            pallas_core=True),
-        "pallas-commit": mk_engine(state_cache=True, state_verify=True,
-                                   fused=True, incremental=False,
-                                   pallas_core=True, device_commit=True),
-    }
-    rng = np.random.default_rng(7)
+    candidates = {name: mk_engine(**knobs)
+                  for name, knobs in EQUIVALENCE_CANDIDATES.items()}
     n = snapshot.num_nodes
+    rng, stale_rows, churn_rounds, fair, flip = equivalence_draws(
+        n, gangs)
     failures: list[str] = []
     solves = 0
 
@@ -739,7 +774,7 @@ def bench_equivalence(args, snapshot, gangs, mk_engine,
              eng_f.solve(gangs, free=free_f), free_c, free_f)
         handle = eng.dispatch(gangs, free=snapshot.free.copy())
         stale_free = snapshot.free.copy()
-        row = int(rng.integers(n))
+        row = stale_rows[name]
         stale_free[row] *= 0.5
         eng.note_free_rows((row,))
         free_c, free_f = stale_free.copy(), stale_free.copy()
@@ -765,20 +800,12 @@ def bench_equivalence(args, snapshot, gangs, mk_engine,
     #    note_free_rows superset contract. The free content moves every
     #    round, so the inc engine must take the full path (epoch
     #    divergence fallback).
-    rounds, subset_size = (4, max(8, len(gangs) // 8))
     free = snapshot.free.copy()
-    for rnd in range(rounds):
-        rows = rng.choice(n, size=min(24, n), replace=False)
-        scale = rng.uniform(0.4, 1.1, size=(rows.size, 1)).astype(np.float32)
+    for rnd, (rows, scale, picks) in enumerate(churn_rounds):
         free[rows] = np.minimum(
             snapshot.capacity[rows], free[rows] * scale
         ).astype(np.float32)
-        subset = [
-            gangs[i]
-            for i in sorted(rng.choice(
-                len(gangs), size=min(subset_size, len(gangs)), replace=False
-            ))
-        ]
+        subset = [gangs[i] for i in picks]
         # one round declares UNKNOWN scope (None) instead of the rows:
         # the engine must fall back to the full content diff and stay
         # correct — the other rounds ride the row-scoped delta path
@@ -793,9 +820,6 @@ def bench_equivalence(args, snapshot, gangs, mk_engine,
     #    extra column; a changed weight also changes the gang's content
     #    fingerprint, so the first fairness solve is an incremental
     #    all-dirty -> full fallback and a repeat is a reuse
-    fair = {
-        g.name: round(float(rng.uniform(-0.5, 1.5)), 6) for g in gangs
-    }
     free = solve_all("fairness", gangs, free, fairness=fair)
     handle = candidates["inc"].dispatch(
         gangs, free=free.copy(), fairness=fair
@@ -857,7 +881,6 @@ def bench_equivalence(args, snapshot, gangs, mk_engine,
     # rebind mid-stream: a cordon-shaped schedulable flip must clear the
     # value cache and force the full-solve fallback (a stale re-score
     # against the old mask would place onto the cordoned node)
-    flip = int(rng.integers(n))
     sched = snapshot.schedulable.copy()
     sched[flip] = ~sched[flip]
     snap2 = dataclasses.replace(snapshot, schedulable=sched)
@@ -962,20 +985,11 @@ def bench_equivalence(args, snapshot, gangs, mk_engine,
     # 7b) seeded bind/unbind churn with carried committed state: every
     #     round moves the free content and re-solves a subset
     for rnd in range(3):
-        rows = rng.choice(n, size=min(24, n), replace=False)
-        scale = rng.uniform(0.4, 1.1, size=(rows.size, 1)).astype(
-            np.float32
-        )
+        rows, scale, picks = churn_draw(rng, n, len(gangs))
         free[rows] = np.minimum(
             snapshot.capacity[rows], free[rows] * scale
         ).astype(np.float32)
-        subset = [
-            gangs[i]
-            for i in sorted(rng.choice(
-                len(gangs), size=min(max(8, len(gangs) // 8), len(gangs)),
-                replace=False,
-            ))
-        ]
+        subset = [gangs[i] for i in picks]
         free = solve_hier(f"churn[{rnd}]", subset, free)
 
     # 7c) structurally unplaceable gangs (per-pod demand no node can
@@ -1114,21 +1128,11 @@ def bench_equivalence(args, snapshot, gangs, mk_engine,
     # seeded bind/unbind churn with carried committed state, declared
     # per the note_free_rows superset contract
     for rnd in range(2):
-        rows = rng.choice(n, size=min(24, n), replace=False)
-        scale = rng.uniform(0.4, 1.1, size=(rows.size, 1)).astype(
-            np.float32
-        )
+        rows, scale, picks = churn_draw(rng, n, len(wave_gangs))
         wfree[rows] = np.minimum(
             snapshot.capacity[rows], wfree[rows] * scale
         ).astype(np.float32)
-        subset = [
-            wave_gangs[i]
-            for i in sorted(rng.choice(
-                len(wave_gangs),
-                size=min(max(8, len(wave_gangs) // 8), len(wave_gangs)),
-                replace=False,
-            ))
-        ]
+        subset = [wave_gangs[i] for i in picks]
         wfree = solve_wave(f"churn[{rnd}]", subset, wfree,
                            declare=rows.tolist())
     # fail/recover-shaped rebind mid-stream: a node drops out of the

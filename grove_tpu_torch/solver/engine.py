@@ -618,10 +618,6 @@ class PlacementEngine:
         self._hier_pallas_core = self.pallas_core
         self._hier_device_commit = self.device_commit
         self._hier: HierarchyState | None = None
-        #: rows the last _sync_free observed changed (None = a full upload
-        #: never diffed: unknown scope), fanned out to the hierarchy's
-        #: domain shards so unchanged domains stay O(1)
-        self._sync_changed: np.ndarray | None = None
 
     # -- device-resident cluster state ---------------------------------------
     def note_free_rows(self, rows) -> None:
@@ -801,8 +797,6 @@ class PlacementEngine:
         st.mirror = masked if self.state_cache else None
         st.epoch += 1
         st.full_uploads += 1
-        #: a full upload is an unknown row scope for the hierarchy fan-out
-        self._sync_changed = None
         # staged rows are content the full matrix already carries
         self._staged = None
         self._count_upload("full", masked.nbytes)
@@ -825,6 +819,7 @@ class PlacementEngine:
             return self._upload_full(free, None)
         n = self.snapshot.num_nodes
         if st.mirror is None or st.mirror.shape != free.shape:
+            self._fan_out(None)
             epoch = self._upload_full(free, None)
             if self.state_verify:
                 self._verify_state(free)
@@ -843,16 +838,19 @@ class PlacementEngine:
             masked = self._masked_free(free)
             changed = np.flatnonzero((st.mirror != masked).any(axis=1))
             new_rows = masked[changed]
-        # the observed changed rows, for the hierarchy's shard fan-out
-        self._sync_changed = changed
+        # the shards get what this sync consumed, not what it found
+        # changed: the parent's mirror holds the content of its last sync,
+        # while a sub-engine may have read a domain's rows mid-solve
+        # (after its own commits) and consumed its own declaration of
+        # them. The declared set covers those rows (the solve declares
+        # every row it placed into); a full diff follows no declaration,
+        # so nothing was committed since and its changed rows suffice.
+        self._fan_out(None if hints is None
+                      else rows if isinstance(hints, set) else changed)
         if changed.size == 0:
             st.hits += 1
         elif changed.size > self._delta_rows_max:
             self._upload_full(free, masked)
-            # the bulk path still OBSERVED exactly these rows: keep the
-            # precise scope (the None _upload_full stamps means never
-            # diffed, which this was not)
-            self._sync_changed = changed
         elif defer and self.fused:
             with self.tracer.span("engine.delta_apply", kind="delta",
                                   staged=True, rows=int(changed.size),
@@ -883,6 +881,14 @@ class PlacementEngine:
         if self.state_verify:
             self._verify_state(free)
         return st.epoch
+
+    def _fan_out(self, rows) -> None:
+        """Hand the rows a sync consumed (None = unknown scope) to the
+        hierarchy's domain shards, whichever path the sync served (flat,
+        hierarchical, what-if): each shard's sub-engine re-reads them at
+        its next fine solve, so unchanged domains stay O(declared rows)."""
+        if self._hier is not None:
+            self._hier.push_rows(rows)
 
     def _take_staged(self) -> np.ndarray | None:
         """Consume the staged delta rows as a padded [K, 1+R] block for the
@@ -919,8 +925,9 @@ class PlacementEngine:
             bad = np.flatnonzero((st.mirror != masked).any(axis=1))
             raise RuntimeError(
                 f"device free-state mirror diverged on rows "
-                f"{bad[:8].tolist()} at epoch {st.epoch}: a free-matrix "
-                "mutation was not declared to note_free_rows"
+                f"{bad[:8].tolist()} ({bad.size} rows in all) at epoch "
+                f"{st.epoch}: a free-matrix mutation was not declared to "
+                "note_free_rows"
             )
         lo, hi = self._state_rows()
         dev_host = st.dev[: hi - lo].cpu().numpy()
@@ -933,7 +940,8 @@ class PlacementEngine:
             bad = lo + np.flatnonzero((dev_host != masked[lo:hi]).any(axis=1))
             raise RuntimeError(
                 f"device free-state buffer diverged from host on rows "
-                f"{bad[:8].tolist()} at epoch {st.epoch}"
+                f"{bad[:8].tolist()} ({bad.size} rows in all) at epoch "
+                f"{st.epoch}"
             )
 
     def _count_upload(self, kind: str, nbytes: int) -> None:
@@ -1632,8 +1640,9 @@ class PlacementEngine:
         hs = self._hier
         if hs is None or hs.snapshot is not self.snapshot or hs.level != level:
             hs = self._hier = HierarchyState(self.snapshot, level)
-        else:
-            hs.push_rows(self._sync_changed if self.state_cache else None)
+        elif not self.state_cache:
+            # no sync ran (nor fanned out): every shard re-reads its slice
+            hs.push_rows(None)
         t_c = time.perf_counter()
         fm = self._masked_free(free)
         admissible, dom_free, cstats, cls_ids = coarse_admissible(
@@ -1748,6 +1757,9 @@ class PlacementEngine:
             stub = SolveResult()
             placed_map, fallbacks = self._hier_run(order, free_h, stub, level)
             rows = np.flatnonzero((free_h != free).any(axis=1))
+            # a domain solved twice in the run read its own commits on
+            # the copy; `free` never had them unless this is adopted
+            self._fan_out(rows)
             hsp.set(
                 fine_solves=int(stub.stats.get("hier_fine_solves", 0)),
                 domains=int(stub.stats.get("hier_domains", 0)),

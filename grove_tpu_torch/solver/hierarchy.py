@@ -286,8 +286,8 @@ class HierarchyState:
         return s
 
     def push_rows(self, rows) -> None:
-        """Fan a parent-observed changed-row declaration out to the
-        owning shards (rows=None -> unknown scope everywhere). Only
+        """Fan the rows a parent sync consumed out to the owning shards
+        (rows=None -> unknown scope everywhere). Only
         shards that already exist need the hint -- a shard built later
         starts from a fresh sub-snapshot slice."""
         if rows is None:

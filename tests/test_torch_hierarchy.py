@@ -680,6 +680,141 @@ class TestReferenceFaultR4:
                     == rj.stats["hier_repair_fallbacks"])
 
 
+
+#: bench.py --equivalence's hierarchical-vs-flat score differences in its
+#: section 7b at its full shape: label -> {gang: (hier score, flat score)}
+EQUIVALENCE_7B_DIFFS = {
+    "churn[0]": {},
+    "churn[1]": {"gang00694": (0.5, 1.0)},
+    "churn[2]": {"gang00289": (0.5, 1.0)},
+}
+
+
+@pytest.fixture(scope="module")
+def equivalence_7b():
+    """bench.py --equivalence's sections 7a-7b at its full shape (5000
+    nodes, 1000 gangs), with what sections 1-6 leave behind: the seed-7
+    generator where section 7 takes it up, section 5's fairness stamps
+    on the gangs, and the flat reference rebound to section 6's
+    schedulable flip. Returns (JAX snapshot, JAX gangs, the flat
+    reference's snapshot, the 7a input, [(label, subset indices, input
+    free)] for 7b's rounds), the inputs carried by the port's flat
+    reference as the gate carries them."""
+    from grove_tpu_torch.bench.solve import churn_draw, equivalence_draws
+    from grove_tpu_torch.solver.serial import stamp_fairness
+
+    jsnap = bench.make_cluster(5000)
+    gangs = bench.make_gangs(1000)
+    n = jsnap.num_nodes
+    rng, _, _, fair, flip = equivalence_draws(n, gangs)
+    for g in gangs:
+        g.fairness = fair[g.name]
+    sched = jsnap.schedulable.copy()
+    sched[flip] = ~sched[flip]
+    fsnap = dataclasses.replace(jsnap, schedulable=sched)
+    tgangs = port_gangs(gangs)
+    stamp_fairness(tgangs, fair)
+    flat = PlacementEngine(port_snapshot(fsnap), device="cpu",
+                           state_cache=False, fused=False, incremental=False)
+    drained = jsnap.free.copy()
+    blocks = jsnap.domain_ids[0]
+    drained[blocks == int(blocks.max())] *= 0.01
+    free = drained.copy()
+    flat.solve(tgangs, free=free)
+    rounds = []
+    for rnd in range(3):
+        rows, scale, picks = churn_draw(rng, n, len(gangs))
+        free[rows] = np.minimum(jsnap.capacity[rows],
+                                free[rows] * scale).astype(np.float32)
+        rounds.append((f"churn[{rnd}]", picks, free.copy()))
+        flat.solve([tgangs[i] for i in picks], free=free)
+    return jsnap, gangs, fsnap, drained, rounds
+
+
+def score_diffs(rh, rf) -> dict:
+    """gang -> (hier score, flat score) where they differ; the rest of
+    the score-equal contract (placed set, unplaced codes, committed
+    totals) asserted."""
+    assert sorted(rh.placed) == sorted(rf.placed)
+    for name, reason in rf.unplaced.items():
+        assert code_of(rh.unplaced[name]) == code_of(reason)
+    return {g: (p.placement_score, rf.placed[g].placement_score)
+            for g, p in rh.placed.items()
+            if p.placement_score != rf.placed[g].placement_score}
+
+
+class TestReferenceFaultR4AtEquivalence:
+    """R4 where bench.py --equivalence meets it at full size: section 7b's
+    churn rounds give two gangs a hierarchical score of 0.5 against the
+    flat 1.0 (EQUIVALENCE_7B_DIFFS), in both packages, on a new engine as
+    on the gate's long-lived one. The coarse pass best-fits the backlog
+    into the tightest blocks by aggregate free; the fine solve of such a
+    block finds no rack left with room for the whole 8-pod gang and
+    spreads it over two racks, where the flat solve finds a whole rack
+    in another block."""
+
+    def test_reference_scores_below_flat(self, equivalence_7b):
+        jsnap, gangs, fsnap, _, rounds = equivalence_7b
+        flat = JaxEngine(fsnap, state_cache=False, fused=False,
+                         incremental=False)
+        got = {}
+        for label, picks, given in rounds:
+            subset = [gangs[i] for i in picks]
+            fh, ff = given.copy(), given.copy()
+            rh = JaxEngine(jsnap, hierarchical=True, state_cache=True,
+                           fused=True, incremental=True,
+                           pallas_core=True).solve(subset, free=fh)
+            got[label] = score_diffs(rh, flat.solve(subset, free=ff))
+        assert got == EQUIVALENCE_7B_DIFFS
+
+    @pytest.mark.parametrize("width", ["auto", "serial"])
+    def test_port_matches_on_new_and_long_lived_engines(self, equivalence_7b,
+                                                        width):
+        """The port's hierarchical engine gives the same differences; a
+        long-lived engine (state_verify on, each solve declared unknown
+        scope as the gate declares it, 7a first) places bit-equal to a
+        new engine on every round; the diverging gang lies on two racks
+        of a block none of whose racks has room for it after the solve,
+        and the flat solve puts it whole on one rack."""
+        jsnap, gangs, fsnap, drained, rounds = equivalence_7b
+        tsnap = port_snapshot(jsnap)
+        tgangs = port_gangs(gangs)
+        for g, jg in zip(tgangs, gangs):
+            g.fairness = jg.fairness
+        knobs = dict(hierarchical=True, state_cache=True, fused=True,
+                     incremental=True, pallas_core=True, device="cpu")
+        if width == "serial":
+            knobs["hier_parallel_workers"] = 0
+        flat = PlacementEngine(port_snapshot(fsnap), device="cpu",
+                               state_cache=False, fused=False,
+                               incremental=False)
+        live = PlacementEngine(tsnap, state_verify=True, **knobs)
+        live.note_free_rows(None)
+        live.solve(tgangs, free=drained.copy())
+        blocks, racks = jsnap.domain_ids[0], jsnap.domain_ids[1]
+        got = {}
+        for label, picks, given in rounds:
+            subset = [tgangs[i] for i in picks]
+            fl, fn, ff = given.copy(), given.copy(), given.copy()
+            live.note_free_rows(None)
+            rl = live.solve(subset, free=fl)
+            rn = PlacementEngine(tsnap, **knobs).solve(subset, free=fn)
+            assert_bitwise(rn, rl, fn, fl, stats=False)
+            rf = flat.solve(subset, free=ff)
+            got[label] = score_diffs(rn, rf)
+            for name in got[label]:
+                nodes, whole = rn.placed[name].node_indices, \
+                    rf.placed[name].node_indices
+                assert len(set(racks[whole].tolist())) == 1
+                assert len(set(racks[nodes].tolist())) == 2
+                (blk,) = set(blocks[nodes].tolist())
+                pods = np.floor((fn / TIER_POD).min(axis=1))
+                room = [pods[racks == r].sum()
+                        for r in np.unique(racks[blocks == blk])]
+                assert max(room) < len(nodes), (name, room)
+        assert got == EQUIVALENCE_7B_DIFFS
+
+
 # -- the domain-sharded hierarchy on the mesh engine ----------------------------
 def _sharded_cases() -> dict:
     """name -> (JAX snapshot, JAX steps, knobs): test_hierarchy.py's

@@ -3,7 +3,9 @@ side on the CPU, and hold their JSON lines equal less their walls.
 
 `run_pair(argv)` starts `bench.py ARGV` (JAX on its CPU backend) and
 `python -m grove_tpu_torch.bench --device cpu ARGV` as two processes at
-the same time, and returns both exit codes and last JSON lines.
+the same time, and returns both exit codes and last JSON lines;
+`run_scripts` does the same for a reference script and its port module,
+with every JSON line.
 `hold_equal(jax, port, walls, renames)` checks that every field named in
 `walls` exists on both sides, drops them, maps the port's renamed keys
 (cli.py's list) back to the JAX package's, and asserts the rest equal,
@@ -41,32 +43,38 @@ def last_json(stdout: str) -> dict:
     return json.loads(lines[-1])
 
 
-def run_pair(argv, timeout: float = 600.0):
-    """(jax_rc, jax_json, port_rc, port_json) of one regime run by both
-    packages at once on the CPU, with the same arguments."""
+def _run_both(jax_cmd, port_cmd, timeout: float):
+    """Run the JAX side's and the port's command at the same time from the
+    repo root on the CPU; {side: (exit code, stdout)}."""
     env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS=_THREADS,
                PYTHONPATH=str(ROOT))
-    procs = {
-        "jax": subprocess.Popen(
-            [sys.executable, "-c", _JAX_MAIN, *argv], cwd=ROOT, env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
-        "port": subprocess.Popen(
-            [sys.executable, "-m", "grove_tpu_torch.bench", "--device",
-             "cpu", *argv], cwd=ROOT, env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
-    }
+    procs = {side: subprocess.Popen(
+        cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for side, cmd in (("jax", jax_cmd), ("port", port_cmd))}
     out = {}
     try:
         for side, proc in procs.items():
             stdout, stderr = proc.communicate(timeout=timeout)
             assert "Traceback" not in stderr, f"{side}:\n{stderr[-4000:]}"
-            out[side] = (proc.returncode, last_json(stdout))
+            out[side] = (proc.returncode, stdout)
     finally:
         for proc in procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    return (*out["jax"], *out["port"])
+    return out
+
+
+def run_pair(argv, timeout: float = 600.0):
+    """(jax_rc, jax_json, port_rc, port_json) of one regime run by both
+    packages at once on the CPU, with the same arguments."""
+    out = _run_both(
+        [sys.executable, "-c", _JAX_MAIN, *argv],
+        [sys.executable, "-m", "grove_tpu_torch.bench", "--device", "cpu",
+         *argv], timeout)
+    return (out["jax"][0], last_json(out["jax"][1]),
+            out["port"][0], last_json(out["port"][1]))
 
 
 def _pop(tree, path: list[str], side: str, name: str):
@@ -130,3 +138,22 @@ def hold_equal(jax: dict, port: dict, walls=(), renames=None) -> None:
         _pop(jax, name.split("."), "JAX", name)
         _pop(port, name.split("."), "port", name)
     assert jax == port, first_difference(jax, port)
+
+
+def json_lines(stdout: str) -> list[dict]:
+    return [json.loads(ln) for ln in stdout.splitlines()
+            if ln.startswith("{")]
+
+
+def run_scripts(jax_script: str, port_module: str, argv,
+                timeout: float = 600.0):
+    """(jax_rc, jax_lines, port_rc, port_lines): `python JAX_SCRIPT ARGV`
+    (the reference's script, JAX on the CPU) and `python -m PORT_MODULE
+    --device cpu ARGV` run at the same time, with every JSON line each
+    printed."""
+    out = _run_both(
+        [sys.executable, str(ROOT / jax_script), *argv],
+        [sys.executable, "-m", port_module, "--device", "cpu", *argv],
+        timeout)
+    return (out["jax"][0], json_lines(out["jax"][1]),
+            out["port"][0], json_lines(out["port"][1]))
