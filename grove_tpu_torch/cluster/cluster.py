@@ -317,9 +317,10 @@ class Cluster:
         controllers are built — they capture cluster.tracer at
         construction (Harness._build_manager re-reads it on restart).
 
-        mode "full" retains spans in the ring; "aggregate" folds finished
-        spans straight into bounded critical-path sketches (the always-on
-        observatory, observability/causal.py)."""
+        mode "full" retains spans in the ring and charges the store's
+        calls to the open span (ObjectStore.charge_calls); "aggregate"
+        folds finished spans straight into bounded critical-path sketches
+        (the always-on observatory, observability/causal.py)."""
         if self.tracer.enabled:
             return self.tracer
         from ..observability.causal import CausalLedger
@@ -343,6 +344,8 @@ class Cluster:
                 flight=self.flight,
             )
             self.tracer.critical.top_k = tcfg.critical_path_top_k
+            # the store's time, charged to the span that asked for it
+            self.store.charge_calls(self.tracer)
         self.kubelet.tracer = self.tracer
         # EventRecorder hook: recorders hold the store (possibly via the
         # chaos proxy, whose __getattr__ delegates), so the flight ring

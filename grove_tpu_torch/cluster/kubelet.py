@@ -235,6 +235,12 @@ class SimKubelet:
         readiness propagates one dependency hop per tick — without this, a
         whole startsAfter chain would cascade to ready within one tick,
         which no real cluster does (informer propagation delay)."""
+        with self.tracer.span("kubelet.tick") as sp:
+            return self._tick(sp)
+
+    def _tick(self, sp) -> int:
+        """tick's body; `sp` (the kubelet.tick span) gets the pods started,
+        readied and lost."""
         changes = 0
         self._authz_cache.clear()
         self._drain()
@@ -245,9 +251,15 @@ class SimKubelet:
         # only heartbeats is quiescent for the settle loop; the manager's
         # follow-up settle drains the Lease events into the NodeMonitor.
         now_hb = self.store.clock.now()
-        for node_name in sorted(self._nodes):  # deterministic event order
-            if node_name not in self._hb_failed:
-                renew_node_lease(self.store, node_name, now_hb)
+        trace = self.tracer.enabled
+        with self.tracer.span("kubelet.heartbeat") as hb:
+            store, failed = self.store, self._hb_failed
+            done = [renew_node_lease(store, node_name, now_hb)
+                    for node_name in sorted(self._nodes)  # deterministic
+                    if node_name not in failed]
+            if trace:
+                hb.set(renewed=done.count("renewed"),
+                       created=done.count("created"))
         # the readiness snapshot is the drained state: writes made DURING
         # this tick emit events that only land at the next drain, so
         # membership is exactly "ready as of tick start"
@@ -276,7 +288,6 @@ class SimKubelet:
                         (pod.metadata.namespace, pod.metadata.name)
                     )
         pod_bucket = self.store.kind_bucket(Pod.KIND)  # read-only
-        trace = self.tracer.enabled
         #: key -> (gang label, node, has startup barrier) for the pod
         #: lifecycle trace points; only populated when tracing is on
         pod_meta: dict[tuple[str, str], tuple[str, str, bool]] = {}
@@ -323,6 +334,8 @@ class SimKubelet:
 
         for ns, name in to_lose:
             changes += self.store.patch_status(Pod.KIND, ns, name, lost)
+        n_lost = changes
+        started = readied = 0
 
         def start(status):
             status.phase = PodPhase.RUNNING
@@ -341,11 +354,14 @@ class SimKubelet:
         for ns, name in to_run:
             if self.store.patch_status(Pod.KIND, ns, name, start):
                 changes += 1
+                started += 1
                 if trace:
                     self._trace_pod("kubelet.pod_start", ns, name, pod_meta)
         for ns, name in to_start_ready:
             if self.store.patch_status(Pod.KIND, ns, name, start_ready):
                 changes += 1
+                started += 1
+                readied += 1
                 if trace:
                     # start + barrier release land in one tick: both
                     # lifecycle points, in order
@@ -354,6 +370,7 @@ class SimKubelet:
         for ns, name in to_ready:
             if self.store.patch_status(Pod.KIND, ns, name, ready):
                 changes += 1
+                readied += 1
                 if trace:
                     self._trace_pod("kubelet.pod_ready", ns, name, pod_meta)
         if self.reporter is not None:
@@ -364,6 +381,8 @@ class SimKubelet:
             # pipeline has), and reporting is NOT counted in `changes` —
             # a tick that only reports metrics is quiescent for settle.
             self.reporter.report(self.store, now, self._ready)
+        if trace:
+            sp.set(started=started, readied=readied, lost=n_lost)
         return changes
 
     def _trace_pod(self, span_name: str, ns: str, pod_name: str,

@@ -56,10 +56,11 @@ class NodeLease:
     KIND = "Lease"
 
 
-def renew_node_lease(store, node_name: str, now: float) -> None:
+def renew_node_lease(store, node_name: str, now: float) -> str:
     """Upsert the node's heartbeat lease to `now`. No-op when already
     renewed at this instant (the settle loop runs many rounds per clock
-    instant; only the first tick writes)."""
+    instant; only the first tick writes). Returns "created", "renewed" or
+    "" for the no-op."""
     lease = store.peek(NodeLease.KIND, NODE_LEASE_NAMESPACE, node_name)
     if lease is None:
         store.create(
@@ -72,10 +73,13 @@ def renew_node_lease(store, node_name: str, now: float) -> None:
             ),
             owned=True,
         )
-    elif lease.renew_time != now:
+        return "created"
+    if lease.renew_time != now:
         fresh = store.get(NodeLease.KIND, NODE_LEASE_NAMESPACE, node_name)
         fresh.renew_time = now
         store.update(fresh)
+        return "renewed"
+    return ""
 
 
 def node_lease_renew_times(store) -> dict[str, float]:

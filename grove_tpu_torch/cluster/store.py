@@ -23,6 +23,7 @@ import copy
 import dataclasses
 import itertools
 import operator
+import time
 from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
@@ -253,6 +254,15 @@ DEFAULT_ACTOR = "user"
 #: the apiserver's own GC controller).
 GC_ACTOR = "system:garbage-collector"
 
+#: The public entry points whose outermost calls ObjectStore.charge_calls
+#: charges to the open span. peek and kind_bucket are dict lookups and
+#: stay uncharged.
+CHARGED_OPS = (
+    "get", "list", "scan", "create", "update", "update_status",
+    "patch_status", "bind_pod", "ungate_pod", "delete", "add_finalizer",
+    "remove_finalizer", "events_since", "relist", "compact_events",
+)
+
 
 class ObjectStore:
     def __init__(self, clock: SimClock | None = None):
@@ -289,6 +299,48 @@ class ObjectStore:
         # bump with unchanged labels (status writes, binds — the vast
         # majority) skips index maintenance entirely.
         self._label_idx: dict[tuple[str, str, str], dict[tuple[str, str], None]] = {}
+
+    # -- tracing -----------------------------------------------------------
+    def charge_calls(self, tracer) -> None:
+        """Charge the wall time of each outermost CHARGED_OPS call to
+        `tracer`'s innermost open span, adding to its `store_seconds` and
+        `store_calls` attrs; a call made with no span open is recorded as
+        a `store.call` span (attr `op`). Calls nested in a charged one
+        (list through scan, admission webhooks inside create, the WAL
+        append inside _emit) are part of its time and not charged again.
+        Installed as instance attributes by Cluster.enable_tracing in
+        full mode: a store that is not traced runs the plain methods."""
+        stack = tracer._stack
+        clock = time.perf_counter
+        depth = [0]
+
+        def charged(op, plain):
+            def call(*args, **kwargs):
+                if depth[0]:
+                    return plain(*args, **kwargs)
+                depth[0] = 1
+                try:
+                    if not stack:
+                        with tracer.span("store.call", op=op):
+                            return plain(*args, **kwargs)
+                    attrs = stack[-1].attrs
+                    t0 = clock()
+                    try:
+                        return plain(*args, **kwargs)
+                    finally:
+                        attrs["store_seconds"] = (
+                            attrs.get("store_seconds", 0.0) + clock() - t0)
+                        attrs["store_calls"] = attrs.get("store_calls", 0) + 1
+                finally:
+                    depth[0] = 0
+
+            call.__name__ = op
+            call.__wrapped__ = plain
+            return call
+
+        cls = type(self)
+        for op in CHARGED_OPS:
+            setattr(self, op, charged(op, getattr(cls, op).__get__(self)))
 
     # -- admission ---------------------------------------------------------
     def register_admission(self, kind: str, admission: Admission) -> None:

@@ -555,14 +555,16 @@ class Harness:
         tick the kubelet, repeat until neither produces changes."""
         max_rounds = max_rounds or self.config.controllers.harness_max_rounds
         inner = self.config.controllers.settle_max_rounds
-        for _ in range(max_rounds):
-            self.manager.settle(inner)
-            if self.kubelet.tick() == 0:
-                # one more manager pass in case final kubelet writes queued
+        with self.cluster.tracer.span("harness.settle"):
+            for _ in range(max_rounds):
                 self.manager.settle(inner)
                 if self.kubelet.tick() == 0:
-                    return
-        raise RuntimeError("harness did not settle")
+                    # one more manager pass in case final kubelet writes
+                    # queued
+                    self.manager.settle(inner)
+                    if self.kubelet.tick() == 0:
+                        return
+            raise RuntimeError("harness did not settle")
 
     def compact_events(self) -> int:
         """Long-run hygiene: drop store events every live consumer has

@@ -215,6 +215,10 @@ class ControllerManager:
             self._queue.append(key)
 
     def _drain_events(self) -> None:
+        self._drain()
+
+    def _drain(self) -> int:
+        """Map the store's new events into the queue; returns how many."""
         try:
             events = self.store.events_since(self._cursor)
         except StoreError:
@@ -227,8 +231,9 @@ class ControllerManager:
             if events:
                 self._cursor = events[-1].seq
         if not events:
-            return
+            return 0
         self._map_events(events, self._enqueue, scope=self.map_scope)
+        return len(events)
 
     def _map_events(self, events, enqueue, scope=None) -> None:
         """Route events through every controller's watch mapping into
@@ -480,8 +485,22 @@ class ControllerManager:
                 "1 when this manager holds the leader lease (or runs "
                 "without election), 0 standing by",
             ).set(1.0, **self.gauge_labels)
-        self._drain_events()
-        self._pop_due_requeues()
+        with self.tracer.span("manager.round") as rsp:
+            ran = self._round()
+            rsp.set(batch=ran)
+        return ran
+
+    def _round(self) -> int:
+        """One round as leader: drain events and due requeues, run the
+        batch, flush the round's coalesced writes (spans
+        manager.drain_events and manager.flush_writes, the reconciles
+        between them). Returns the number of reconciles executed."""
+        tracer = self.tracer
+        with tracer.span("manager.drain_events") as dsp:
+            queued = len(self._queue)
+            events = self._drain()
+            self._pop_due_requeues()
+            dsp.set(events=events, enqueued=len(self._queue) - queued)
         batch, self._queue = self._queue, []
         self._queued -= set(batch)
         if self.request_filter is not None:
@@ -559,7 +578,7 @@ class ControllerManager:
             failed = False
             # one span per reconcile; a finished span's attrs stay
             # mutable, so the outcome/attempt tags land after the fact
-            span = self.tracer.span(
+            span = tracer.span(
                 "manager.reconcile", controller=cname,
                 namespace=req.namespace, name=req.name,
             )
@@ -707,18 +726,20 @@ class ControllerManager:
                         req,
                     ),
                 )
-        self._flush_round_writes()
+        with tracer.span("manager.flush_writes") as fsp:
+            fsp.set(writes=self._flush_round_writes())
         return len(batch)
 
-    def _flush_round_writes(self) -> None:
+    def _flush_round_writes(self) -> int:
         """End-of-round flush of the coalesced status/event writes
         (concurrency.WriteBatch) through the slow-start batcher. Flush
         errors degrade like reconcile soft-errors: recorded, surfaced to
         the log, never fatal — the deferred writes are idempotent
-        re-derivations, and the next round's enqueue retries them."""
+        re-derivations, and the next round's enqueue retries them.
+        Returns the number of writes flushed."""
         batch = self.round_batch
         if batch is None or not len(batch):
-            return
+            return 0
         # partitioned durable write path: group the flush by WAL
         # partition so one partition's failure never halts another's
         # writes (cluster/durability.PartitionedLog.partition_of; None
@@ -736,7 +757,7 @@ class ControllerManager:
             self._record_error_entry(
                 "round-writes", Request("", "flush"), str(exc)
             )
-            return
+            return 0
         if self.metrics is not None:
             m = self.metrics.counter(
                 "grove_manager_round_writes_total",
@@ -755,6 +776,7 @@ class ControllerManager:
                 self.logger.error(
                     "round write flush failed", task=name, error=str(err),
                 )
+        return len(result.succeeded)
 
     def settle(self, max_rounds: int = 256) -> None:
         """Run until no events are pending and the queue is empty (due

@@ -51,7 +51,7 @@ from ..observability.explain import (
     unsat_code,
     unsat_preemptible,
 )
-from ..observability.tracing import accepts_kwarg, accepts_tracer_kwarg
+from ..observability.tracing import accepts_kwarg
 from ..solver import PlacementEngine, SolverGang, encode_podgangs
 from ..solver.engine import resolve_device
 from ..solver.problem import (
@@ -183,7 +183,7 @@ class GangScheduler:
             # (topology changes) and surface in debug_dump()["explain"].
             # A strict-signature custom engine simply records nothing.
             self._engine_kwargs["decision_log"] = cluster.decisions
-        if cluster.tracer.enabled and accepts_tracer_kwarg(engine_cls):
+        if cluster.tracer.enabled and accepts_kwarg(engine_cls, "tracer"):
             # only injected when tracing is on AND the engine can take
             # it: a custom engine class with a strict signature keeps
             # working untraced even under ChaosHarness, which always

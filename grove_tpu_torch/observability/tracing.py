@@ -1,9 +1,9 @@
 """Zero-dependency span tracing for the control plane + chaos flight
 recorder.
 
-The counterpart of grove_tpu/observability/tracing.py, copied whole. It
-imports nothing of grove_tpu, so the two packages' objects compare field
-by field.
+The counterpart of grove_tpu/observability/tracing.py, with the port's
+own spans and wall clock (below). It imports nothing of grove_tpu, so
+the two packages' objects compare field by field.
 
 The reference leans on controller-runtime's Prometheus endpoint and pprof
 for visibility (manager.go:42-44,114-119); neither says WHERE a slow gang
@@ -17,9 +17,16 @@ spent its time. This module is the missing decomposition layer:
                       Every span carries BOTH
                       virtual-clock timestamps (v0/v1 — causality and the
                       GangTimeline sum contract run on the simulated
-                      clock) and wall perf_counter times (t0/t1 — a whole
-                      settle runs at one virtual instant, so wall time is
-                      the axis Perfetto renders usefully).
+                      clock) and wall times (t0/t1 — a whole settle runs
+                      at one virtual instant, so wall time is the axis
+                      Perfetto renders usefully). Wall times are seconds
+                      since the tracer's `epoch_ns` on the Unix real-time
+                      clock, the clock torch.profiler stamps its host
+                      events with: `epoch_ns + t0 * 1e9` is the
+                      profiler's own nanosecond timestamp of the instant.
+                      epoch_ns is the instant time.perf_counter read 0,
+                      so t0 also reads as a perf_counter value, to within
+                      the two clocks' drift (under 10 ppm on the card).
   NOOP_TRACER       — the off-by-default singleton. A disabled
                       instrumentation site costs one method call returning
                       a shared no-op span; no Span objects are allocated
@@ -37,6 +44,14 @@ spent its time. This module is the missing decomposition layer:
   chrome_trace()    — Chrome trace-event JSON (Perfetto /
                       chrome://tracing loadable); the CLI in
                       observability/trace.py converts dumps offline.
+
+The port adds spans the JAX package has not (PORT_SPANS): the layer
+boundaries of a settle (harness.settle, manager.round and its
+drain_events / flush_writes children, kubelet.tick and its heartbeat
+sweep) and the solve's tail (engine.finish, engine.record). In full mode
+the store charges each outermost call's wall time to the innermost open
+span's `store_seconds` / `store_calls` attrs (ObjectStore.charge_calls),
+or records it as a `store.call` span where none is open.
 
 Contract note: a finished Span stays mutable until exported — callers may
 amend attrs (e.g. the manager stamps `outcome` after the span closed) and
@@ -60,6 +75,14 @@ from .causal import (
 TRACE_DUMP_FORMAT = "grove-trace/v1"
 FLIGHT_DUMP_FORMAT = "grove-flight/v1"
 
+#: span names only the port records: the JAX package's counterparts of
+#: these sites are bare code. Lockstep tests drop them before comparing.
+PORT_SPANS = frozenset((
+    "harness.settle", "manager.round", "manager.drain_events",
+    "manager.flush_writes", "kubelet.tick", "kubelet.heartbeat",
+    "engine.finish", "engine.record", "store.call",
+))
+
 #: the gang lifecycle phases GangTimeline decomposes, in order. Each is
 #: the gap between two consecutive virtual-clock checkpoints, so the sum
 #: telescopes exactly to (running - created) = bind latency + startup.
@@ -68,7 +91,8 @@ GANG_PHASES = ("queued", "solving", "binding", "pod_startup", "barrier_wait")
 
 class Span:
     """One traced operation. v0/v1 are virtual-clock seconds, t0/t1 wall
-    seconds since the tracer's epoch. attrs is a plain JSON-able dict."""
+    seconds since the tracer's `epoch_ns`. attrs is a plain JSON-able
+    dict."""
 
     __slots__ = ("name", "span_id", "parent_id", "v0", "v1", "t0", "t1",
                  "attrs", "_tracer")
@@ -99,10 +123,6 @@ class Span:
             self.attrs["error"] = f"{exc_type.__name__}: {exc}"
         self._tracer._finish(self)
         return False
-
-    @property
-    def wall_seconds(self) -> float:
-        return self.t1 - self.t0
 
     def to_dict(self) -> dict:
         return {
@@ -202,17 +222,15 @@ def accepts_kwarg(cls, name: str) -> bool:
     )
 
 
-def accepts_tracer_kwarg(cls) -> bool:
-    """accepts_kwarg specialization kept for its existing callers."""
-    return accepts_kwarg(cls, "tracer")
-
-
 class Tracer:
     """Recording tracer bound to a virtual clock. Single-threaded by
     design (the whole control plane is): parent/child causality is a
     stack, re-entrant use (a reconcile driving a nested manager round)
     just nests deeper. Finished spans land in a bounded ring
-    (deque maxlen) — fixed memory at any trace length."""
+    (deque maxlen) — fixed memory at any trace length; `dropped` counts
+    the spans a full ring evicted. Wall times are seconds since
+    `epoch_ns` on time.time_ns, torch.profiler's host clock, with the
+    epoch where time.perf_counter reads 0."""
 
     enabled = True
     mode = "full"
@@ -226,8 +244,14 @@ class Tracer:
         self.finished: deque[Span] = deque(maxlen=max_spans)
         self._stack: list[Span] = []
         self._next_id = 1
-        self._t_base = time.perf_counter()
+        #: the wall epoch, Unix nanoseconds: `epoch_ns + t * 1e9` is the
+        #: instant on torch.profiler's host clock. Set where perf_counter
+        #: reads 0, so a span's t0 can be set beside perf_counter readings
+        #: (a caller's marks) without a conversion.
+        self.epoch_ns = time.time_ns() - time.perf_counter_ns()
         self.spans_started = 0
+        #: finished spans the full ring evicted
+        self.dropped = 0
         #: (gang_key, bind_span_id) pairs already flushed to metrics —
         #: flush_gang_phases is idempotent per bind
         self._phases_flushed: set[tuple[str, int]] = set()
@@ -239,10 +263,22 @@ class Tracer:
         self._paths_flushed: set[tuple[str, int]] = set()
 
     # -- span lifecycle ----------------------------------------------------
+    def _now_t(self) -> float:
+        """Wall seconds since epoch_ns."""
+        return (time.time_ns() - self.epoch_ns) * 1e-9
+
     def _now_v(self) -> float:
         if self.clock is not None:
             return self.clock.now()
-        return time.perf_counter() - self._t_base
+        return self._now_t()
+
+    def _retain(self, span: Span) -> None:
+        ring = self.finished
+        if len(ring) == ring.maxlen:
+            self.dropped += 1
+        ring.append(span)
+        if self.flight is not None:
+            self.flight.add_span(span)
 
     def span(self, name: str, /, **attrs: Any) -> Span:
         """Open a span (use as a context manager). Parent is whatever
@@ -251,23 +287,21 @@ class Tracer:
         self._next_id += 1
         parent = self._stack[-1].span_id if self._stack else None
         self.spans_started += 1
-        return Span(self, name, sid, parent, self._now_v(),
-                    time.perf_counter() - self._t_base, attrs)
+        return Span(self, name, sid, parent, self._now_v(), self._now_t(),
+                    attrs)
 
     def _enter(self, span: Span) -> None:
         self._stack.append(span)
 
     def _finish(self, span: Span) -> None:
         span.v1 = self._now_v()
-        span.t1 = time.perf_counter() - self._t_base
+        span.t1 = self._now_t()
         # pop to the span: tolerates unwinds that skipped exits
         # (ManagerCrash raised through a crash-restart)
         while self._stack:
             if self._stack.pop() is span:
                 break
-        self.finished.append(span)
-        if self.flight is not None:
-            self.flight.add_span(span)
+        self._retain(span)
 
     def point(self, name: str, /, **attrs: Any) -> Span:
         """Zero-duration span (an event with causality): parented to the
@@ -276,16 +310,10 @@ class Tracer:
         self._next_id += 1
         parent = self._stack[-1].span_id if self._stack else None
         self.spans_started += 1
-        sp = Span(self, name, sid, parent, self._now_v(),
-                  time.perf_counter() - self._t_base, attrs)
-        self.finished.append(sp)
-        if self.flight is not None:
-            self.flight.add_span(sp)
+        sp = Span(self, name, sid, parent, self._now_v(), self._now_t(),
+                  attrs)
+        self._retain(sp)
         return sp
-
-    @property
-    def open_depth(self) -> int:
-        return len(self._stack)
 
     # -- flight-recorder feeds --------------------------------------------
     def record_error(self, controller: str, namespace: str, name: str,
@@ -306,6 +334,7 @@ class Tracer:
             "mode": self.mode,
             "spans_started": self.spans_started,
             "spans_retained": len(self.finished),
+            "dropped": self.dropped,
             "max_spans": self.max_spans,
             "open_spans": len(self._stack),
             "by_name": dict(sorted(by_name.items())),
@@ -451,7 +480,7 @@ class AggregateTracer(Tracer):
 
     def _finish(self, span: Span) -> None:
         span.v1 = self._now_v()
-        span.t1 = time.perf_counter() - self._t_base
+        span.t1 = self._now_t()
         while self._stack:
             if self._stack.pop() is span:
                 break
@@ -466,8 +495,8 @@ class AggregateTracer(Tracer):
         self._next_id += 1
         parent = self._stack[-1].span_id if self._stack else None
         self.spans_started += 1
-        sp = Span(self, name, sid, parent, self._now_v(),
-                  time.perf_counter() - self._t_base, attrs)
+        sp = Span(self, name, sid, parent, self._now_v(), self._now_t(),
+                  attrs)
         self.folder.fold(sp, stack=self._stack)
         return sp
 
@@ -818,20 +847,19 @@ def chrome_trace(groups: dict[str, "Iterable[Span] | Tracer"]) -> dict:
     recorded them, so merging span lists from different tracers would
     stack every group at ts~0 and sequential work would render as
     concurrent. Pass the Tracer objects themselves (bench.py --trace
-    does) and each group is shifted by its tracer's epoch delta from
-    the earliest one — the merged trace shares one real time axis."""
-    resolved: list[tuple[str, Iterable[Span], float | None]] = []
-    epochs: list[float] = []
+    does) and each group is placed by its tracer's `epoch_ns`: ts is
+    then microseconds of the Unix real-time clock, torch.profiler's host
+    clock (an export_chrome_trace file's ts plus its
+    baseTimeNanoseconds / 1000)."""
+    resolved: list[tuple[str, Iterable[Span], int | None]] = []
     for label, g in groups.items():
         if isinstance(g, Tracer):
-            resolved.append((label, g.finished, g._t_base))
-            epochs.append(g._t_base)
+            resolved.append((label, g.finished, g.epoch_ns))
         else:
             resolved.append((label, g, None))
-    base = min(epochs) if epochs else 0.0
     events: list[dict] = []
     for i, (label, spans, epoch) in enumerate(resolved):
-        shift = (epoch - base) if epoch is not None else 0.0
+        shift = epoch * 1e-9 if epoch is not None else 0.0
         events.extend(
             chrome_trace_events(spans, pid=i + 1, label=label, shift=shift)
         )

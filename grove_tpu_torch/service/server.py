@@ -75,16 +75,12 @@ class PlacementService:
         #: and the recording Tracer is single-threaded, so enable it only
         #: with max_workers=1 or for in-process/debug use.
         from ..observability.explain import DecisionLog
-        from ..observability.tracing import (
-            NOOP_TRACER,
-            accepts_kwarg,
-            accepts_tracer_kwarg,
-        )
+        from ..observability.tracing import NOOP_TRACER, accepts_kwarg
 
         if tracer is None:
             tracer = NOOP_TRACER
         self.tracer = tracer
-        if tracer.enabled and accepts_tracer_kwarg(engine_cls):
+        if tracer.enabled and accepts_kwarg(engine_cls, "tracer"):
             self.engine_kwargs.setdefault("tracer", tracer)
         #: service-owned placement-decision ring shared by every cached
         #: engine (epochs come and go; explanations persist) — surfaced

@@ -1963,7 +1963,16 @@ class PlacementEngine:
         the rows the repair committed, attribute every gang placed or
         unplaced (with the memoized structured diagnosis against the
         residual free matrix), and feed the metrics and the decision
-        ring."""
+        ring. Span engine.finish, with engine.record around the feed; its
+        wall is result.stats["finish_seconds"]."""
+        t_fin = time.perf_counter()
+        with self.tracer.span("engine.finish", gangs=len(order)):
+            self._finish(result, order, placed_map, fallbacks, free, gangs,
+                         t0)
+        result.stats["finish_seconds"] = time.perf_counter() - t_fin
+        return result
+
+    def _finish(self, result, order, placed_map, fallbacks, free, gangs, t0):
         if self.state_cache and placed_map:
             # the repair committed demand into `free` in place: the engine
             # declares its OWN mutations, so the next sync diffs only the
@@ -1998,8 +2007,8 @@ class PlacementEngine:
             result.unplaced[gang.name] = diag
         result.stats["fallbacks"] = float(fallbacks)
         result.wall_seconds = time.perf_counter() - t0
-        self._record(result, gangs)
-        return result
+        with self.tracer.span("engine.record"):
+            self._record(result, gangs)
 
     def _repair(self, order, top_val, top_dom, free):
         """Exact commit phase: each gang tries its candidates in order,

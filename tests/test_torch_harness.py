@@ -894,7 +894,11 @@ def test_debug_dump_has_the_reference_sections(config):
     h.apply(ref_basic.simple_pcs(replicas=2))
     h.settle()
     dj, dt = h._j.debug_dump(), h._t.debug_dump()
-    assert _shape(dt) == _shape(dj)
+    want = _shape(dj)
+    if dj["tracing"].get("enabled"):
+        # the port's tracer also counts the spans its full ring evicted
+        want["tracing"]["dropped"] = None
+    assert _shape(dt) == want
     for section in ("store", "node_lifecycle", "defrag", "tenancy",
                     "explain"):
         assert dt.get(section) == dj.get(section), section

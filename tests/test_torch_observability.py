@@ -180,12 +180,21 @@ def metric_values(reg) -> dict:
 
 def span_view(tracer) -> list:
     """(name, parent's name, attributes) of every finished span in order,
-    without the times and the causal tokens."""
-    by_id = {sp.span_id: sp.name for sp in tracer.finished}
-    return [(sp.name, by_id.get(sp.parent_id),
+    without the times and the causal tokens. The port's own spans
+    (tracing.PORT_SPANS) are left out, and a span under one of them
+    names its nearest ancestor the JAX package records too."""
+    by_id = {sp.span_id: sp for sp in tracer.finished}
+
+    def parent(sp):
+        up = by_id.get(sp.parent_id)
+        while up is not None and up.name in tracing.PORT_SPANS:
+            up = by_id.get(up.parent_id)
+        return None if up is None else up.name
+
+    return [(sp.name, parent(sp),
              {k: v for k, v in sp.attrs.items()
               if not k.endswith("_seconds") and not k.startswith("causal_")})
-            for sp in tracer.finished]
+            for sp in tracer.finished if sp.name not in tracing.PORT_SPANS]
 
 
 def decisions(log) -> dict:
