@@ -30,7 +30,7 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 #: grove_native_abi() of a library this wrapper may call: bumped with any
 #: signature or constraint-model change of serial_scorer.cpp
-EXPECTED_ABI = 3
+EXPECTED_ABI = 4
 
 _LIB: ctypes.CDLL | None = None
 
@@ -43,12 +43,15 @@ _F32, _I32, _U8 = (ctypes.POINTER(t) for t in
 #: cg_member_offsets, cg_members)
 _PROBLEM = ([ctypes.c_int32] * 3 + [_F32, _F32, _U8, _I32, ctypes.c_int32]
             + [_I32, _F32] + [_I32] * 11)
-#: ... then elig_masks, pod_mask_idx, assign
-_SOLVE_ARGTYPES = _PROBLEM + [_U8, _I32, _I32]
-#: ... then top_dom, top_val, top_k, dom_level, dom_offsets, elig_masks,
-#: pod_mask_idx, assign, fallbacks_out
-_REPAIR_ARGTYPES = _PROBLEM + [_I32, _F32, ctypes.c_int32, _I32, _I32, _U8,
-                               _I32, _I32, _I32]
+#: The prefix's free is written: both entry points commit the placed
+#: pods' demand into it.
+#: ... then elig_masks, pod_mask_idx, assign, narrowest
+_SOLVE_ARGTYPES = _PROBLEM + [_U8, _I32, _I32, _I32]
+#: ... then top_dom, top_val, top_k, dom_level, dom_node_offsets,
+#: dom_nodes, elig_masks, pod_mask_idx, assign, narrowest, fallbacks_out,
+#: candidates_out
+_REPAIR_ARGTYPES = _PROBLEM + [_I32, _F32, ctypes.c_int32, _I32, _I32, _I32,
+                               _U8, _I32, _I32, _I32, _I32, _I32]
 
 
 def library_path() -> Path:

@@ -45,52 +45,62 @@ def _encode_elig(order: list[SolverGang], num_nodes: int):
     return masks, idx
 
 
+def domain_node_index(domain_ids: np.ndarray, dom_offsets: np.ndarray,
+                      num_domains: int) -> tuple[np.ndarray, np.ndarray]:
+    """Every global domain's nodes as a CSR: (offsets int32 [D+1], nodes
+    int32), a domain's nodes in ascending order. `domain_ids` [L, N] holds
+    each node's local id per level, `dom_offsets` [L] each level's first
+    global id (the engine's DomainSpace numbering: the root is 0 and owns
+    no entry). The repair walks it instead of scanning every node."""
+    levels, n = domain_ids.shape
+    ends = np.append(np.asarray(dom_offsets[1:], np.int64), num_domains)
+    gid = domain_ids.astype(np.int64) + np.asarray(dom_offsets, np.int64)[:, None]
+    keep = (domain_ids >= 0) & (gid < ends[:, None])
+    gid = gid[keep]
+    # a stable sort of level-major, node-ascending ids keeps each domain's
+    # nodes ascending
+    nodes = np.broadcast_to(np.arange(n, dtype=np.int32), (levels, n))[keep]
+    order = np.argsort(gid, kind="stable")
+    offsets = np.zeros(num_domains + 1, np.int32)
+    np.cumsum(np.bincount(gid, minlength=num_domains), out=offsets[1:])
+    return offsets, np.ascontiguousarray(nodes[order])
+
+
 def _build_placements(
     snapshot: TopologySnapshot,
     order: list[SolverGang],
     pod_offsets: np.ndarray,
     assign: np.ndarray,
-    demand: np.ndarray,
-    free: np.ndarray,
+    narrowest: np.ndarray,
 ) -> dict[str, GangPlacement]:
-    """Flat C++ `assign` -> GangPlacement dict, with scores and the free
-    update vectorised across all gangs. Scores replicate
-    fit.placement_score_for_nodes: per gang, the narrowest level on which
-    every pod shares one domain. MUTATES free."""
-    node_names = snapshot.node_names
-    levels = snapshot.num_levels
-    placed_mask = assign >= 0
-    starts = pod_offsets[:-1]
-    counts = np.diff(pod_offsets)
-    if (counts <= 0).any():  # encode invariant: every gang has >=1 pod
+    """Flat C++ `assign` and each gang's narrowest shared level ->
+    GangPlacement dict. Scores replicate fit.placement_score_for_nodes.
+    A gang is placed iff its first pod is (all-or-nothing per gang)."""
+    if (np.diff(pod_offsets) <= 0).any():  # encode invariant: >=1 pod a gang
         raise ValueError("empty gang in native placement build")
-    # a gang is placed iff its first pod is (all-or-nothing per gang)
-    gang_placed = placed_mask[starts]
-    safe_assign = np.where(placed_mask, assign, 0)
-    # narrowest shared level per gang: per level, a reduceat-AND of "same
-    # domain as the gang's first pod"; broader levels are checked first so
-    # the last hit wins (= narrowest)
-    narrowest = np.full(len(order), -1, np.int32)
-    for level in range(levels):
-        ids = snapshot.domain_ids[level, safe_assign]
-        eq = ids == np.repeat(ids[starts], counts)
-        all_same = np.bitwise_and.reduceat(eq, starts)
-        narrowest[all_same] = level
-    scores = (narrowest + 2) / (levels + 1)
+    offs = pod_offsets.tolist()
+    nodes = assign.astype(np.int64)
+    assigned = assign.tolist()
+    names = list(map(snapshot.node_names.__getitem__, assigned))
+    scale = snapshot.num_levels + 1
     placements: dict[str, GangPlacement] = {}
-    for i, gang in enumerate(order):
-        if not gang_placed[i]:
+    for i, level in enumerate(narrowest.tolist()):
+        s, e = offs[i], offs[i + 1]
+        if assigned[s] < 0:
             continue
-        a = assign[starts[i]: pod_offsets[i + 1]].astype(np.int64)
+        gang = order[i]
+        # positional, in field order: keyword arguments double the call's cost
         placements[gang.name] = GangPlacement(
-            gang=gang,
-            pod_to_node={gang.pod_names[j]: node_names[a[j]]
-                         for j in range(len(a))},
-            node_indices=a,
-            placement_score=float(scores[i]),
-        )
-    np.subtract.at(free, assign[placed_mask], demand[placed_mask])
+            gang, dict(zip(gang.pod_names, names[s:e])), nodes[s:e],
+            (level + 2) / scale)
     return placements
+
+
+def _offsets(counts) -> np.ndarray:
+    """[len + 1] int32 running sum of `counts`, from 0."""
+    out = np.zeros(len(counts) + 1, np.int32)
+    np.cumsum(counts, dtype=np.int32, out=out[1:])
+    return out
 
 
 def _encode_groups(order: list[SolverGang]):
@@ -101,24 +111,15 @@ def _encode_groups(order: list[SolverGang]):
     group_prefs = np.concatenate(
         [g.group_preferred_level for g in order]
     ).astype(np.int32) if order else np.zeros(0, np.int32)
-    cg_offsets = np.zeros(len(order) + 1, np.int32)
-    cg_req, cg_pref, member_counts, members = [], [], [], []
-    for i, g in enumerate(order):
-        cg_offsets[i + 1] = cg_offsets[i] + len(g.constraint_groups)
-        for mem, req, pref in g.constraint_groups:
-            cg_req.append(req)
-            cg_pref.append(pref)
-            member_counts.append(len(mem))
-            members.extend(mem)
-    cg_member_offsets = np.zeros(len(cg_req) + 1, np.int32)
-    if member_counts:
-        cg_member_offsets[1:] = np.cumsum(member_counts)
+    cg_offsets = _offsets([len(g.constraint_groups) for g in order])
+    cgs = [cg for g in order for cg in g.constraint_groups]
+    members = [m for mem, _req, _pref in cgs for m in mem]
     return (
         np.ascontiguousarray(group_prefs),
-        np.ascontiguousarray(cg_offsets),
-        np.asarray(cg_req, np.int32),
-        np.asarray(cg_pref, np.int32),
-        np.ascontiguousarray(cg_member_offsets),
+        cg_offsets,
+        np.asarray([req for _mem, req, _pref in cgs], np.int32),
+        np.asarray([pref for _mem, _req, pref in cgs], np.int32),
+        _offsets([len(mem) for mem, _req, _pref in cgs]),
         np.asarray(members, np.int32),
     )
 
@@ -127,25 +128,25 @@ def _encode_problem(snapshot: TopologySnapshot, order: list[SolverGang],
                     free: np.ndarray):
     """The argument prefix both C entry points share, from
     (num_nodes, num_res, num_levels) through the constraint groups, plus
-    (pod_offsets, demand) for _build_placements and the arrays the
-    pointers refer to (kept alive by the caller)."""
+    pod_offsets for _build_placements, the float32 C-contiguous array the
+    C++ commits into (`free` itself where it is one, else a copy the
+    caller copies back) and the arrays the pointers refer to (kept alive
+    by the caller)."""
     n, r = snapshot.num_nodes, len(snapshot.resource_names)
-    pod_offsets = np.zeros(len(order) + 1, np.int32)
-    group_offsets = np.zeros(len(order) + 1, np.int32)
-    for i, g in enumerate(order):
-        pod_offsets[i + 1] = pod_offsets[i] + g.num_pods
-        group_offsets[i + 1] = group_offsets[i] + len(g.group_names)
+    demands = [g.demand for g in order]
+    pod_offsets = _offsets(list(map(len, demands)))
+    free_c = np.ascontiguousarray(free, np.float32)
     arrays = [
         np.ascontiguousarray(snapshot.capacity, np.float32),
-        np.ascontiguousarray(free, np.float32),
+        free_c,
         np.ascontiguousarray(snapshot.schedulable, np.uint8),
         np.ascontiguousarray(snapshot.domain_ids, np.int32),
         pod_offsets,
-        np.ascontiguousarray(np.concatenate([g.demand for g in order]), np.float32),
-        np.asarray([g.required_level for g in order], np.int32),
-        np.asarray([g.preferred_level for g in order], np.int32),
+        np.ascontiguousarray(np.concatenate(demands), np.float32),
+        np.fromiter((g.required_level for g in order), np.int32, len(order)),
+        np.fromiter((g.preferred_level for g in order), np.int32, len(order)),
         np.ascontiguousarray(np.concatenate([g.group_ids for g in order]), np.int32),
-        group_offsets,
+        _offsets([len(g.group_names) for g in order]),
         np.ascontiguousarray(
             np.concatenate([g.group_required_level for g in order]), np.int32),
         *_encode_groups(order),
@@ -154,7 +155,7 @@ def _encode_problem(snapshot: TopologySnapshot, order: list[SolverGang],
     # capacity, free, schedulable, domain_ids | num_gangs | the gang arrays
     args = [ct.c_int32(n), ct.c_int32(r), ct.c_int32(snapshot.num_levels),
             *ptrs[:4], ct.c_int32(len(order)), *ptrs[4:]]
-    return args, pod_offsets, arrays[5], arrays
+    return args, pod_offsets, free_c, arrays
 
 
 _CTYPE = {np.dtype(np.float32): ct.c_float, np.dtype(np.int32): ct.c_int32,
@@ -194,20 +195,42 @@ def solve_serial_native(
     if not order:
         result.wall_seconds = time.perf_counter() - t0
         return result
-    args, pod_offsets, demand, _keep = _encode_problem(snapshot, order, free)
+    args, pod_offsets, free_c, _keep = _encode_problem(snapshot, order, free)
     masks, mask_idx = _encode_elig(order, snapshot.num_nodes)
-    assign = np.full(int(pod_offsets[-1]), -1, np.int32)
-    lib.solve_serial(*args, _ptr(masks), _ptr(mask_idx), _ptr(assign))
+    assign = np.empty(int(pod_offsets[-1]), np.int32)
+    narrowest = np.empty(len(order), np.int32)
+    lib.solve_serial(*args, _ptr(masks), _ptr(mask_idx), _ptr(assign),
+                     _ptr(narrowest))
+    _commit_back(free, free_c)
     result.placed = _build_placements(
-        snapshot, order, pod_offsets, assign, demand, free
+        snapshot, order, pod_offsets, assign, narrowest
     )
     for g in order:
         if g.name not in result.placed:
             # the structured diagnosis of the Python paths, against the
-            # residual free matrix _build_placements just committed into
+            # residual free matrix the C++ just committed into
             result.unplaced[g.name] = diagnose_unplaced(g, snapshot, free)
     result.wall_seconds = time.perf_counter() - t0
     return result
+
+
+def _checked_index(dom_index, num_domains: int, num_nodes: int):
+    """The (offsets, nodes) CSR as int32 C arrays the C++ walk may index
+    without bounds checks; raises ValueError on a malformed one."""
+    offsets, nodes = (np.ascontiguousarray(a, np.int32) for a in dom_index)
+    if (offsets.shape != (num_domains + 1,) or offsets[0] != 0
+            or offsets[-1] != nodes.size or (np.diff(offsets) < 0).any()
+            or (nodes.size and (nodes.min() < 0 or nodes.max() >= num_nodes))):
+        raise ValueError(
+            f"domain->node index does not fit {num_domains} domains over "
+            f"{num_nodes} nodes")
+    return offsets, nodes
+
+
+def _commit_back(free: np.ndarray, free_c: np.ndarray) -> None:
+    """Where the C++ committed into a copy of `free`, copy it back."""
+    if free_c is not free:
+        free[...] = free_c
 
 
 def repair_native(
@@ -218,29 +241,43 @@ def repair_native(
     dom_level: np.ndarray,
     dom_offsets: np.ndarray,
     free: np.ndarray,
+    *,
+    dom_index: tuple[np.ndarray, np.ndarray] | None = None,
+    stats: dict | None = None,
 ) -> tuple[dict[str, GangPlacement], int]:
     """The engine's exact commit phase in C++: each gang (in `order`) tries
     its scored candidates (top_dom/top_val rows, best first; values <=
     -5e8 are invalid), then the full serial scan. Returns (placements,
     fallback count); MUTATES free in place like the Python repair loop.
-    Raises RuntimeError if the library cannot be built or loaded."""
+    `dom_index` is domain_node_index(snapshot.domain_ids, dom_offsets,
+    len(dom_level)), built here when not given. `stats`, when given, gets
+    "repair_candidates": the candidate domains tried. Raises RuntimeError
+    if the library cannot be built or loaded."""
     lib = load_library()
     g = len(order)
-    args, pod_offsets, demand, _keep = _encode_problem(snapshot, order, free)
+    if dom_index is None:
+        dom_index = domain_node_index(snapshot.domain_ids, dom_offsets,
+                                      len(dom_level))
+    dom_index = _checked_index(dom_index, len(dom_level), snapshot.num_nodes)
+    args, pod_offsets, free_c, _keep = _encode_problem(snapshot, order, free)
     top_dom_c = np.ascontiguousarray(top_dom[:g], np.int32)
     top_val_c = np.ascontiguousarray(top_val[:g], np.float32)
     dom_level_c = np.ascontiguousarray(dom_level, np.int32)
-    dom_offsets_c = np.ascontiguousarray(dom_offsets, np.int32)
     masks, mask_idx = _encode_elig(order, snapshot.num_nodes)
-    assign = np.full(int(pod_offsets[-1]), -1, np.int32)
-    fallbacks = ct.c_int32(0)
+    assign = np.empty(int(pod_offsets[-1]), np.int32)
+    narrowest = np.empty(g, np.int32)
+    fallbacks, candidates = ct.c_int32(0), ct.c_int32(0)
     lib.repair_gangs(
         *args,
         _ptr(top_dom_c), _ptr(top_val_c), ct.c_int32(top_dom_c.shape[1]),
-        _ptr(dom_level_c), _ptr(dom_offsets_c),
-        _ptr(masks), _ptr(mask_idx), _ptr(assign), ct.byref(fallbacks),
+        _ptr(dom_level_c), *map(_ptr, dom_index),
+        _ptr(masks), _ptr(mask_idx), _ptr(assign), _ptr(narrowest),
+        ct.byref(fallbacks), ct.byref(candidates),
     )
+    _commit_back(free, free_c)
+    if stats is not None:
+        stats["repair_candidates"] = float(candidates.value)
     placements = _build_placements(
-        snapshot, order, pod_offsets, assign, demand, free
+        snapshot, order, pod_offsets, assign, narrowest
     )
     return placements, int(fallbacks.value)

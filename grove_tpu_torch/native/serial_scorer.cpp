@@ -1,7 +1,9 @@
 // Serial gang scorer and exact repair, host C++ (not a kernel).
 //
 // grove_tpu_torch's own copy of grove_tpu/native/serial_scorer.cpp, kept
-// identical in algorithm and ABI so the two packages place bit for bit.
+// identical in algorithm so the two packages place bit for bit. Its ABI
+// differs: the commit into free and the placement scores run here, and
+// the repair reads its candidates' nodes from a domain->node index.
 // `solve_serial` is the native serial baseline; `repair_gangs` is the
 // engine's default exact repair (PlacementEngine native_repair=True).
 // The algorithm mirrors grove_tpu_torch/solver/serial.py and fit.py
@@ -334,6 +336,42 @@ bool place_in_domain(const Ctx& ctx, const Gang& g, const float* demand,
                     assign);
 }
 
+// Commit every placed pod's demand into the caller's `free_io` and write
+// each gang's narrowest shared level. The commit runs in pod-index order,
+// one pod at a time (np.subtract.at's order), so `free_io` comes out
+// bitwise what that would give, fractional demands included. A gang's
+// narrowest shared level is the deepest level at which every pod's node
+// has the same domain id (-1 = none); fit.placement_score_for_nodes
+// turns it into the score. Unplaced gangs read -1.
+void commit_and_score(int32_t num_nodes, int32_t num_res, int32_t num_levels,
+                      const int32_t* domain_ids, int32_t num_gangs,
+                      const int32_t* pod_offsets, const float* demand,
+                      const int32_t* assign, float* free_io,
+                      int32_t* narrowest) {
+  int32_t total_pods = pod_offsets[num_gangs];
+  for (int32_t p = 0; p < total_pods; ++p) {
+    int32_t n = assign[p];
+    if (n < 0) continue;
+    for (int r = 0; r < num_res; ++r)
+      free_io[(size_t)n * num_res + r] -= demand[(size_t)p * num_res + r];
+  }
+  for (int32_t g = 0; g < num_gangs; ++g) {
+    int32_t begin = pod_offsets[g], end = pod_offsets[g + 1];
+    int32_t best = -1;
+    if (assign[begin] >= 0) {
+      for (int level = 0; level < num_levels; ++level) {
+        const int32_t* ids = domain_ids + (size_t)level * num_nodes;
+        int32_t first = ids[assign[begin]];
+        bool same = true;
+        for (int32_t p = begin + 1; p < end && same; ++p)
+          same = ids[assign[p]] == first;
+        if (same) best = level;
+      }
+    }
+    narrowest[g] = best;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -344,8 +382,10 @@ extern "C" {
 // instead of marshalling arguments into undefined behavior. Bump on ANY
 // signature or constraint-model change. v3 = full fit.py model:
 // gang/group required+preferred levels, constraint groups, eligibility
-// masks.
-int32_t grove_native_abi(void) { return 3; }
+// masks. v4 = both entry points commit into the caller's free matrix and
+// return each gang's narrowest shared level; repair_gangs reads its
+// candidates' nodes from a domain->node index and counts the candidates.
+int32_t grove_native_abi(void) { return 4; }
 
 // Returns number of gangs placed. assign[P_total] gets the node index per
 // pod (-1 if the owning gang is unplaced). gang_order: priority order is
@@ -353,7 +393,7 @@ int32_t grove_native_abi(void) { return 3; }
 int32_t solve_serial(
     int32_t num_nodes, int32_t num_res, int32_t num_levels,
     const float* capacity,        // [N*R] for cap_scale
-    const float* free_in,         // [N*R]
+    float* free_io,               // [N*R] in: free, out: less the placed pods
     const uint8_t* schedulable,   // [N]
     const int32_t* domain_ids,    // [L*N]
     int32_t num_gangs,
@@ -373,7 +413,8 @@ int32_t solve_serial(
     const int32_t* cg_members,      // member group indices (relative)
     const uint8_t* elig_masks,      // [M*N] or null
     const int32_t* pod_mask_idx,    // [P_total] or null
-    int32_t* assign                 // out [P_total]
+    int32_t* assign,                // out [P_total]
+    int32_t* narrowest              // out [G] narrowest shared level or -1
 ) {
   Ctx ctx;
   ctx.num_nodes = num_nodes;
@@ -389,7 +430,7 @@ int32_t solve_serial(
     for (int r = 0; r < num_res; ++r)
       ctx.cap_scale[r] = std::max(ctx.cap_scale[r], capacity[n * num_res + r]);
 
-  std::vector<float> free(free_in, free_in + (size_t)num_nodes * num_res);
+  std::vector<float> free(free_io, free_io + (size_t)num_nodes * num_res);
   std::vector<int32_t> sched;
   for (int n = 0; n < num_nodes; ++n)
     if (schedulable[n]) sched.push_back(n);
@@ -454,6 +495,8 @@ int32_t solve_serial(
       for (int32_t p = g.pod_begin; p < g.pod_end; ++p) assign[p] = -1;
     }
   }
+  commit_and_score(num_nodes, num_res, num_levels, domain_ids, num_gangs,
+                   pod_offsets, demand, assign, free_io, narrowest);
   return placed_count;
 }
 
@@ -470,13 +513,18 @@ extern "C" {
 // Python loop dominated the solve wall-clock.
 //
 // dom_level[D]: level of each global domain id (-1 = cluster root).
-// dom_offsets[L]: global id offset of each level's domains.
+// dom_node_offsets[D+1] / dom_nodes: every global domain's nodes, in
+// ascending order (a CSR the engine builds once per snapshot); the walk
+// keeps only the schedulable ones, so a node cordoned since the index
+// was built is skipped. The root's entry is not read.
 // top_dom/top_val: [G*K] candidates (row-major, best first); entries with
 // top_val <= -5e8 are invalid.
-// Returns number of gangs placed; fallbacks_out counts full-scan rescues.
+// Returns number of gangs placed; fallbacks_out counts full-scan rescues,
+// candidates_out the candidate domains tried. free_io and narrowest as
+// in solve_serial.
 int32_t repair_gangs(
     int32_t num_nodes, int32_t num_res, int32_t num_levels,
-    const float* capacity, const float* free_in, const uint8_t* schedulable,
+    const float* capacity, float* free_io, const uint8_t* schedulable,
     const int32_t* domain_ids,
     int32_t num_gangs, const int32_t* pod_offsets, const float* demand,
     const int32_t* required_level, const int32_t* preferred_level,
@@ -486,9 +534,11 @@ int32_t repair_gangs(
     const int32_t* cg_offsets, const int32_t* cg_req, const int32_t* cg_pref,
     const int32_t* cg_member_offsets, const int32_t* cg_members,
     const int32_t* top_dom, const float* top_val, int32_t top_k,
-    const int32_t* dom_level, const int32_t* dom_offsets,
+    const int32_t* dom_level,
+    const int32_t* dom_node_offsets, const int32_t* dom_nodes,
     const uint8_t* elig_masks, const int32_t* pod_mask_idx,
-    int32_t* assign, int32_t* fallbacks_out) {
+    int32_t* assign, int32_t* narrowest, int32_t* fallbacks_out,
+    int32_t* candidates_out) {
   Ctx ctx;
   ctx.num_nodes = num_nodes;
   ctx.num_res = num_res;
@@ -503,7 +553,7 @@ int32_t repair_gangs(
     for (int r = 0; r < num_res; ++r)
       ctx.cap_scale[r] = std::max(ctx.cap_scale[r], capacity[n * num_res + r]);
 
-  std::vector<float> free(free_in, free_in + (size_t)num_nodes * num_res);
+  std::vector<float> free(free_io, free_io + (size_t)num_nodes * num_res);
   std::vector<int32_t> sched;
   for (int n = 0; n < num_nodes; ++n)
     if (schedulable[n]) sched.push_back(n);
@@ -513,6 +563,8 @@ int32_t repair_gangs(
 
   int32_t placed_count = 0;
   int32_t fallbacks = 0;
+  int32_t candidates = 0;
+  std::vector<int32_t> dom;
   for (int32_t gidx = 0; gidx < num_gangs; ++gidx) {
     Gang g;
     g.pod_begin = pod_offsets[gidx];
@@ -535,13 +587,13 @@ int32_t repair_gangs(
       if (top_val[gidx * top_k + k] <= -5e8f) break;
       int32_t d = top_dom[gidx * top_k + k];
       int level = dom_level[d];
-      std::vector<int32_t> dom;
+      ++candidates;
       if (level < 0) {
         dom = sched;
       } else {
-        int32_t local = d - dom_offsets[level];
-        for (int32_t n : sched)
-          if (ctx.domain_ids[level * num_nodes + n] == local) dom.push_back(n);
+        dom.clear();
+        for (int32_t i = dom_node_offsets[d]; i < dom_node_offsets[d + 1]; ++i)
+          if (schedulable[dom_nodes[i]]) dom.push_back(dom_nodes[i]);
       }
       if (dom.empty()) continue;
       std::vector<float> save;
@@ -597,7 +649,10 @@ int32_t repair_gangs(
       for (int32_t p = g.pod_begin; p < g.pod_end; ++p) assign[p] = -1;
     }
   }
+  commit_and_score(num_nodes, num_res, num_levels, domain_ids, num_gangs,
+                   pod_offsets, demand, assign, free_io, narrowest);
   if (fallbacks_out) *fallbacks_out = fallbacks;
+  if (candidates_out) *candidates_out = candidates;
   return placed_count;
 }
 

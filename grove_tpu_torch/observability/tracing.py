@@ -51,7 +51,9 @@ drain_events / flush_writes children, kubelet.tick and its heartbeat
 sweep) and the solve's tail (engine.finish, engine.record). In full mode
 the store charges each outermost call's wall time to the innermost open
 span's `store_seconds` / `store_calls` attrs (ObjectStore.charge_calls),
-or records it as a `store.call` span where none is open.
+or records it as a `store.call` span where none is open. It also adds
+attrs to spans both packages record (PORT_ATTRS): the native repair's
+`repair_candidates` on engine.fused or engine.repair.
 
 Contract note: a finished Span stays mutable until exported — callers may
 amend attrs (e.g. the manager stamps `outcome` after the span closed) and
@@ -82,6 +84,10 @@ PORT_SPANS = frozenset((
     "manager.flush_writes", "kubelet.tick", "kubelet.heartbeat",
     "engine.finish", "engine.record", "store.call",
 ))
+
+#: attrs only the port sets on spans both packages record. Lockstep tests
+#: drop them before comparing.
+PORT_ATTRS = frozenset(("repair_candidates",))
 
 #: the gang lifecycle phases GangTimeline decomposes, in order. Each is
 #: the gap between two consecutive virtual-clock checkpoints, so the sum

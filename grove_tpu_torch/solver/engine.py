@@ -88,7 +88,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..native.serial_native import repair_native
+from ..native.serial_native import domain_node_index, repair_native
 from ..observability.causal import next_token
 from ..observability.explain import DecisionLog, diagnose_unplaced
 from ..observability.tracing import NOOP_TRACER
@@ -533,6 +533,9 @@ class PlacementEngine:
         self.commit_chunk = commit_chunk
         self.bucket_min = bucket_min
         self._sched_nodes = np.flatnonzero(snapshot.schedulable)
+        self._dom_index = self._domain_node_index()
+        #: what the last _repair counted: {"repair_candidates": n}
+        self._repair_stats: dict[str, float] = {}
         self._cap_scale = np.maximum(
             snapshot.capacity.max(axis=0), 1e-9
         ).astype(np.float32)
@@ -697,6 +700,13 @@ class PlacementEngine:
             inc.value_dev = inc.td_dev = None
             self._inc = None
 
+    def _domain_node_index(self):
+        """The native repair's domain->node CSR over the snapshot's
+        domains (built once per snapshot, at construction and rebind)."""
+        return domain_node_index(self.snapshot.domain_ids,
+                                 np.asarray(self.space.offsets[:-1]),
+                                 self.space.num_domains)
+
     def rebind(self, snapshot: TopologySnapshot) -> bool:
         """Adopt a freshly-encoded snapshot WITHOUT rebuilding the engine
         when the static encoding is unchanged (same nodes, domain tree and
@@ -718,6 +728,7 @@ class PlacementEngine:
         self.snapshot = snapshot
         self.space.snapshot = snapshot
         self._sched_nodes = np.flatnonzero(snapshot.schedulable)
+        self._dom_index = self._domain_node_index()
         # the funnel memo keys on the outgoing snapshot's masks and
         # schedulable set; the cached value rows embed its mask: a rebind
         # always forces the next solve down the FULL path
@@ -1883,6 +1894,7 @@ class PlacementEngine:
                     device_seconds=round(result.stats["device_seconds"], 6),
                     repair_seconds=round(result.stats["repair_seconds"], 6),
                     fallbacks=fallbacks,
+                    repair_candidates=result.stats["repair_candidates"],
                     overlapped=bool(result.stats.get("dispatch_overlap")),
                 )
         return self._finish_solve(result, order, placed_map, fallbacks, free,
@@ -1946,8 +1958,9 @@ class PlacementEngine:
         with inner.span("engine.repair", gangs=len(order)) as rsp:
             placed_map, fallbacks = self._repair(order, top_val, top_dom,
                                                  free)
-            rsp.set(fallbacks=fallbacks)
+            rsp.set(fallbacks=fallbacks, **self._repair_stats)
         result.stats["repair_seconds"] = time.perf_counter() - t_rep
+        result.stats.update(self._repair_stats)
         return placed_map, fallbacks, path
 
     def _record(self, result: SolveResult, gangs) -> None:
@@ -2014,20 +2027,24 @@ class PlacementEngine:
         """Exact commit phase: each gang tries its candidates in order,
         then the serial exactness net. In C++ by default (repair_native,
         which raises if its library cannot be built); with the fit.py
-        primitives, the semantic reference, when native_repair is off."""
+        primitives, the semantic reference, when native_repair is off.
+        Leaves the candidate domains tried in self._repair_stats."""
+        self._repair_stats = stats = {}
         if self.native_repair:
             return repair_native(
                 self.snapshot, order, top_val, top_dom, self.space.dom_level,
                 np.asarray(self.space.offsets[:-1], np.int32), free,
+                dom_index=self._dom_index, stats=stats,
             )
         snapshot = self.snapshot
         placed_map = {}
-        fallbacks = 0
+        fallbacks = candidates = 0
         for i, gang in enumerate(order):
             placed = None
             for k in range(top_dom.shape[1]):
                 if top_val[i, k] <= _NEG / 2:
                     break
+                candidates += 1
                 node_idx, level = self.space.nodes_of(
                     int(top_dom[i, k]), self._sched_nodes
                 )
@@ -2041,6 +2058,7 @@ class PlacementEngine:
                 placed = _place_one(gang, snapshot, free, self._sched_nodes)
             if placed is not None:
                 placed_map[gang.name] = placed
+        stats["repair_candidates"] = float(candidates)
         return placed_map, fallbacks
 
     # -- the device phase ----------------------------------------------------

@@ -206,8 +206,11 @@ def dedupe_pod_masks(
     row_of: dict[int, int] = {}
     p = 0
     for g in gangs:
+        if g.pod_elig is None:
+            p += g.num_pods
+            continue
         for j in range(g.num_pods):
-            mask = g.pod_elig[j] if g.pod_elig is not None else None
+            mask = g.pod_elig[j]
             if mask is not None:
                 row = row_of.get(id(mask))
                 if row is None:

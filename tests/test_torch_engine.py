@@ -73,6 +73,18 @@ def _fair_priority():
     return snap, gangs
 
 
+def _fractional():
+    """Non-dyadic demands that differ pod by pod and pack several pods a
+    node: float32 subtraction in any order but pod index gives other bits
+    in the free matrix."""
+    snap, gangs = bench.make_cluster(64), bench.make_gangs(48)
+    rng = np.random.default_rng(7)
+    for g in gangs:
+        scale = rng.uniform(0.05, 0.95, (g.num_pods, 1))
+        g.demand = (g.demand * scale).astype(np.float32)
+    return snap, gangs
+
+
 CASES = {
     "tiny": lambda: __graft_entry__._tiny_problem(),
     "stress512": lambda: (bench.make_cluster(512), bench.make_gangs(64)),
@@ -83,6 +95,7 @@ CASES = {
     "starved": lambda: (bench.make_cluster(32), bench.make_gangs(64)),
     "masked_cordoned": _masked_cordoned,
     "fair_priority": _fair_priority,
+    "fractional": _fractional,
 }
 
 KNOBS = {
@@ -151,6 +164,22 @@ def assert_tie_policy(ref, ref_free, out, out_free):
     assert _unsat_codes(out) == _unsat_codes(ref)
     assert np.allclose(out_free.sum(axis=0), ref_free.sum(axis=0),
                        rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_repair_candidates_native_equals_fitpy(case):
+    """Every flat solve reports the candidate domains its repair tried:
+    the same count from the C++ repair and from fit.py, and at least one
+    for every gang placed without the serial net."""
+    snap, gangs = CASES[case]()
+    tsnap, tgangs = _convert(snap, gangs)
+    out = {native: PlacementEngine(tsnap, device="cpu",
+                                   native_repair=native).solve(tgangs)
+           for native in (True, False)}
+    assert_same_result(out[False], out[True])
+    tried = out[True].stats["repair_candidates"]
+    assert tried == out[False].stats["repair_candidates"]
+    assert tried >= len(out[True].placed) - out[True].stats["fallbacks"]
 
 
 @pytest.mark.parametrize("case", CASES)

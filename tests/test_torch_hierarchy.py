@@ -66,10 +66,15 @@ def code_of(reason):
     return getattr(code, "value", code)
 
 
+#: stats only the port reports: the candidate domains its repair tried
+PORT_STATS = ("repair_candidates",)
+
+
 def plain_stats(res) -> dict:
-    """A result's stats without the wall-clock ones."""
+    """A result's stats without the wall-clock ones and the port's own."""
     return {k: v for k, v in res.stats.items()
-            if not k.endswith("seconds") and not k.startswith("hier_fine_wall")}
+            if not k.endswith("seconds") and not k.startswith("hier_fine_wall")
+            and k not in PORT_STATS}
 
 
 def assert_bitwise(a, b, free_a, free_b, stats=True):

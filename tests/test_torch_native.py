@@ -29,10 +29,12 @@ from grove_tpu.solver.engine import DomainSpace as JaxDomainSpace
 from grove_tpu.solver.problem import UNRESOLVED_LEVEL
 from grove_tpu.solver.serial import gang_sort_key as jax_gang_sort_key
 
+import bench
 from grove_tpu_torch import build
 from grove_tpu_torch.native import build as native_build
 from grove_tpu_torch.native import repair_native, solve_serial_native
-from grove_tpu_torch.solver import solve_serial
+from grove_tpu_torch.native.serial_native import domain_node_index
+from grove_tpu_torch.solver import PlacementEngine, solve_serial
 
 from test_native import backlog, grouped_gang
 from test_solver import cluster, gang
@@ -222,6 +224,201 @@ def test_repair_native_bit_equal_to_jax(case, k):
     np.testing.assert_array_equal(out_free, ref_free)
 
 
+REPAIR_CASES = {
+    "stress_reduced": lambda: (bench.make_cluster(512), bench.make_gangs(96)),
+    "fractional": CASES["fractional"],
+    "masked": CASES["masked_cordoned"],
+    "constraint_groups": lambda: (
+        bench.make_cluster(512), bench.make_gangs(64, grouped=True)),
+    "grouped_small": lambda: _grouped_cases()["engine_grouped"],
+}
+
+
+def _repair_inputs(snap, gangs, k, first_level=False):
+    """The solvable gangs in commit order and random scored candidates
+    (a fifth invalid, which sends gangs to the serial net). With
+    `first_level`, candidates are drawn from the topology levels only,
+    never the root."""
+    order = sorted((g for g in gangs if not g.unschedulable_reason),
+                   key=jax_gang_sort_key)
+    space = JaxDomainSpace(snap)
+    rng = np.random.default_rng(len(order) * 10 + k)
+    low = 1 if first_level else 0
+    top_dom = rng.integers(low, space.num_domains,
+                           (len(order), k)).astype(np.int32)
+    top_val = rng.uniform(1.0, 9.0, (len(order), k)).astype(np.float32)
+    top_val[rng.random((len(order), k)) < 0.2] = -1e9
+    return order, space, top_val, top_dom
+
+
+def _pod_order_commit(free, order, placed):
+    """`free` less every placed pod's demand, pod by pod in commit order
+    (np.subtract.at's order: what the C++ repair commits)."""
+    free = free.copy()
+    pods = [(placed[g.name].node_indices, g.demand) for g in order
+            if g.name in placed]
+    if pods:
+        np.subtract.at(free, np.concatenate([n for n, _d in pods]),
+                       np.concatenate([d for _n, d in pods]))
+    return free
+
+
+def _assert_same_repair(ref, out):
+    """(placements, fallbacks, free) equal, placements field by field."""
+    (ref_placed, ref_fallbacks, ref_free), (placed, fallbacks, free) = ref, out
+    assert fallbacks == ref_fallbacks
+    assert sorted(placed) == sorted(ref_placed)
+    for name, p in ref_placed.items():
+        q = placed[name]
+        assert q.node_indices.dtype == np.int64
+        np.testing.assert_array_equal(q.node_indices, p.node_indices)
+        assert q.placement_score == p.placement_score
+        assert q.pod_to_node == p.pod_to_node
+    assert free.dtype == ref_free.dtype
+    assert free.tobytes() == ref_free.tobytes()
+
+
+def _engine_repair(tsnap, torder, top_val, top_dom, native, engine=None):
+    """One repair through a port engine's _repair: (placements,
+    fallbacks, free) and the candidates it counted."""
+    if engine is None:
+        engine = PlacementEngine(tsnap, device="cpu", native_repair=native)
+    free = tsnap.free.copy()
+    placed, fallbacks = engine._repair(torder, top_val, top_dom, free)
+    return (placed, fallbacks, free), engine._repair_stats["repair_candidates"]
+
+
+def _jax_repair(snap, order, space, top_val, top_dom):
+    free = snap.free.copy()
+    placed, fallbacks = jax_repair_native(
+        snap, order, top_val, top_dom, space.dom_level,
+        np.asarray(space.offsets[:-1], np.int32), free)
+    return placed, fallbacks, free
+
+
+@pytest.mark.parametrize("case", list(REPAIR_CASES))
+@pytest.mark.parametrize("k", [1, 8])
+def test_repair_matches_python_and_jax(case, k):
+    """The C++ repair over the engine's domain index, the fit.py repair
+    (native_repair=False) and the JAX package's repair_native: placements,
+    scores, fallbacks and the free matrix bit for bit; the two port
+    repairs count the same candidates. fit.py commits each pod as it
+    places it, in best-fit order: with fractional demands its free
+    matrix differs in the last bits, and there its placements committed
+    in pod order give the C++ repair's free matrix bit for bit."""
+    snap, gangs = REPAIR_CASES[case]()
+    order, space, top_val, top_dom = _repair_inputs(snap, gangs, k)
+    ref = _jax_repair(snap, order, space, top_val, top_dom)
+    tsnap, torder = _convert(snap, order)
+    native, tried = _engine_repair(tsnap, torder, top_val, top_dom, True)
+    fitpy, tried_py = _engine_repair(tsnap, torder, top_val, top_dom, False)
+    _assert_same_repair(ref, native)
+    if case == "fractional":
+        assert fitpy[2].tobytes() != ref[2].tobytes()  # the case bites
+        fitpy = (*fitpy[:2], _pod_order_commit(tsnap.free, torder, fitpy[0]))
+    _assert_same_repair(ref, fitpy)
+    assert tried == tried_py >= len(ref[0]) - ref[1]
+
+
+def test_repair_skips_a_node_cordoned_without_a_rebind():
+    """A node cordoned by writing snapshot.schedulable after the engine
+    built its index is skipped: the result is the JAX repair's and a
+    fresh engine's on the cordoned snapshot."""
+    snap, gangs = bench.make_cluster(512), bench.make_gangs(96)
+    order, space, top_val, top_dom = _repair_inputs(snap, gangs, 4,
+                                                    first_level=True)
+    top_val[:, 0] = 9.5  # every gang's first candidate is read
+    tsnap, torder = _convert(snap, order)
+    engine = PlacementEngine(tsnap, device="cpu")
+    # half the nodes of the first gang's first candidate, and of the
+    # domains of the first ten gangs' first candidates
+    victims = set()
+    for d in top_dom[:10, 0]:
+        level = int(space.dom_level[d])
+        local = int(d) - space.offsets[level]
+        nodes = np.flatnonzero(snap.domain_ids[level] == local)
+        victims.update(nodes[::2].tolist())
+    victims = np.asarray(sorted(victims))
+    before = _engine_repair(tsnap, torder, top_val, top_dom, True, engine)[0]
+    hit = {int(n) for p in before[0].values() for n in p.node_indices}
+    assert hit & set(victims.tolist())  # the cordon changes the result
+    for s in {id(snap.schedulable): snap.schedulable,
+              id(tsnap.schedulable): tsnap.schedulable}.values():
+        s[victims] = False
+    ref = _jax_repair(snap, order, space, top_val, top_dom)
+    out, tried = _engine_repair(tsnap, torder, top_val, top_dom, True, engine)
+    fitpy, tried_py = _engine_repair(tsnap, torder, top_val, top_dom, False)
+    _assert_same_repair(ref, out)
+    _assert_same_repair(ref, fitpy)
+    assert tried == tried_py
+    assert not {int(n) for p in out[0].values()
+                for n in p.node_indices} & set(victims.tolist())
+
+
+def test_domain_node_index_lists_each_domains_nodes_ascending():
+    """The CSR holds, for every domain below the root, exactly the nodes
+    a scan of domain_ids finds, in ascending order; the root owns none."""
+    snap = bench.make_cluster(300)  # ragged: the last block is partial
+    space = JaxDomainSpace(snap)
+    offsets, nodes = domain_node_index(
+        snap.domain_ids, np.asarray(space.offsets[:-1]), space.num_domains)
+    assert offsets.dtype == nodes.dtype == np.int32
+    assert offsets.shape == (space.num_domains + 1,) and offsets[1] == 0
+    for d in range(1, space.num_domains):
+        level = int(space.dom_level[d])
+        want = np.flatnonzero(
+            snap.domain_ids[level] == d - space.offsets[level])
+        np.testing.assert_array_equal(nodes[offsets[d]:offsets[d + 1]], want)
+
+
+@pytest.mark.parametrize("case", ["stress_reduced", "masked"])
+def test_repair_native_without_an_index_builds_its_own(case):
+    """repair_native called without the engine's index gives what it
+    gives with it."""
+    snap, gangs = REPAIR_CASES[case]()
+    order, space, top_val, top_dom = _repair_inputs(snap, gangs, 8)
+    tsnap, torder = _convert(snap, order)
+    engine = PlacementEngine(tsnap, device="cpu")
+    offsets = np.asarray(space.offsets[:-1], np.int32)
+    runs = []
+    for dom_index in (None, engine._dom_index):
+        free, stats = tsnap.free.copy(), {}
+        placed, fallbacks = repair_native(
+            tsnap, torder, top_val, top_dom, space.dom_level, offsets, free,
+            dom_index=dom_index, stats=stats)
+        runs.append(((placed, fallbacks, free), stats["repair_candidates"]))
+    _assert_same_repair(runs[0][0], runs[1][0])
+    assert runs[0][1] == runs[1][1]
+    offsets_, nodes = engine._dom_index
+    for bad in ((offsets_[:-1], nodes), (offsets_, nodes[:-1]),
+                (offsets_, nodes + tsnap.num_nodes)):
+        with pytest.raises(ValueError, match="domain->node index"):
+            repair_native(tsnap, torder, top_val, top_dom, space.dom_level,
+                          offsets, tsnap.free.copy(), dom_index=bad)
+
+
+def test_repair_candidates_counts_the_domains_tried():
+    """Every gang held by its first candidate: one candidate a gang. A
+    first candidate with no room (a block emptied) before the root: two
+    for each gang that tried it."""
+    snap, gangs = bench.make_cluster(512), bench.make_gangs(24)
+    order, space, _val, _dom = _repair_inputs(snap, gangs, 2)
+    tsnap, torder = _convert(snap, order)
+    g = len(torder)
+    top_val = np.full((g, 2), 5.0, np.float32)
+    top_dom = np.zeros((g, 2), np.int32)  # the root, twice
+    (placed, fallbacks, _free), tried = _engine_repair(
+        tsnap, torder, top_val, top_dom, True)
+    assert len(placed) == g and fallbacks == 0 and tried == g
+    block0 = space.offsets[0]
+    tsnap.free[snap.domain_ids[0] == 0] = 0.0
+    top_dom[:, 0] = block0
+    (placed, fallbacks, free), tried = _engine_repair(
+        tsnap, torder, top_val, top_dom, True)
+    assert len(placed) == g and fallbacks == 0 and tried == 2 * g
+    assert not free[snap.domain_ids[0] == 0].any()
+
+
 @pytest.fixture
 def fresh_native(monkeypatch, tmp_path):
     """The native build with no cached library: a private build directory
@@ -252,7 +449,7 @@ def test_compile_error_raises(fresh_native, monkeypatch, tmp_path):
 
 def test_abi_mismatch_raises(fresh_native, monkeypatch):
     monkeypatch.setattr(fresh_native, "EXPECTED_ABI", fresh_native.EXPECTED_ABI + 1)
-    with pytest.raises(RuntimeError, match="ABI 3"):
+    with pytest.raises(RuntimeError, match="ABI 4"):
         fresh_native.load_library()
     assert fresh_native._LIB is None
 

@@ -181,8 +181,9 @@ def metric_values(reg) -> dict:
 def span_view(tracer) -> list:
     """(name, parent's name, attributes) of every finished span in order,
     without the times and the causal tokens. The port's own spans
-    (tracing.PORT_SPANS) are left out, and a span under one of them
-    names its nearest ancestor the JAX package records too."""
+    (tracing.PORT_SPANS) and attrs (tracing.PORT_ATTRS) are left out,
+    and a span under one of them names its nearest ancestor the JAX
+    package records too."""
     by_id = {sp.span_id: sp for sp in tracer.finished}
 
     def parent(sp):
@@ -193,7 +194,8 @@ def span_view(tracer) -> list:
 
     return [(sp.name, parent(sp),
              {k: v for k, v in sp.attrs.items()
-              if not k.endswith("_seconds") and not k.startswith("causal_")})
+              if not k.endswith("_seconds") and not k.startswith("causal_")
+              and k not in tracing.PORT_ATTRS})
             for sp in tracer.finished if sp.name not in tracing.PORT_SPANS]
 
 
