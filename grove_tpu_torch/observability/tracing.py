@@ -48,7 +48,9 @@ spent its time. This module is the missing decomposition layer:
 The port adds spans the JAX package has not (PORT_SPANS): the layer
 boundaries of a settle (harness.settle, manager.round and its
 drain_events / flush_writes children, kubelet.tick and its heartbeat
-sweep) and the solve's tail (engine.finish, engine.record). In full mode
+sweep), the solve's tail (engine.finish, engine.record) and the
+hierarchical solve's coarse pass and exactness net (engine.hier_coarse,
+engine.hier_net, under engine.hierarchical). In full mode
 the store charges each outermost call's wall time to the innermost open
 span's `store_seconds` / `store_calls` attrs (ObjectStore.charge_calls),
 or records it as a `store.call` span where none is open. It also adds
@@ -83,6 +85,7 @@ PORT_SPANS = frozenset((
     "harness.settle", "manager.round", "manager.drain_events",
     "manager.flush_writes", "kubelet.tick", "kubelet.heartbeat",
     "engine.finish", "engine.record", "store.call",
+    "engine.hier_coarse", "engine.hier_net",
 ))
 
 #: attrs only the port sets on spans both packages record. Lockstep tests

@@ -56,8 +56,10 @@ solve outcome, uploads, bytes moved by payload kind, launches by path,
 incremental rows, the hierarchical waves), `tracer=` (spans
 engine.fused / engine.encode, engine.device, engine.repair,
 engine.delta_apply, engine.whatif, engine.hierarchical, engine.hier_wave
-and the engine.fine_solve points) and `decision_log=` (a DecisionLog; a
-private one by default, `engine.decisions = None` turns it off). Every
+and the engine.fine_solve points; the port's own engine.hier_coarse and
+engine.hier_net, and engine.finish with engine.record) and
+`decision_log=` (a DecisionLog; a private one by default,
+`engine.decisions = None` turns it off). Every
 span and counter is recorded on the host, on the calling thread, around
 the launches and never inside a CUDA graph capture; sub-engines of the
 hierarchical solve have none of the three, and their fine solves are
@@ -70,7 +72,14 @@ PlacementEngine over the domain's sub-snapshot, on this engine's device,
 with its own resident state, incremental tier, CUDA graphs and CUDA
 stream). A wave of fine solves dispatches every domain through a thread
 pool (`hier_parallel_workers`), then collects in domain order, so its
-placements are bit-equal to solving the domains one at a time.
+placements are bit-equal to solving the domains one at a time. Its
+result's `encode_seconds`, `device_seconds` and `repair_seconds` are the
+sums of its fine solves' own (the encodes ran side by side on the pool's
+threads; the rest in turn on the calling thread), and `finish_seconds`
+its own tail plus theirs (a solve that adopts a dispatch reports the
+dispatch's wall as `encode_seconds`, as on the flat path);
+`hier_coarse_seconds`, `hier_fine_seconds` (the waves' wall) and
+`hier_net_seconds` are walls of its three phases.
 """
 
 from __future__ import annotations
@@ -1506,6 +1515,9 @@ class PlacementEngine:
             sub_stats["incremental_rows"] += res.stats.get(
                 "incremental_rows", 0.0)
         sub_stats["hier_repair_fallbacks"] += res.stats.get("fallbacks", 0.0)
+        for part in ("encode", "device", "repair", "finish"):
+            sub_stats[f"{part}_seconds"] += res.stats.get(f"{part}_seconds",
+                                                          0.0)
         return placed_here, failed
 
     def _solve_domain(self, hs, dom: int, members, free: np.ndarray,
@@ -1655,11 +1667,16 @@ class PlacementEngine:
             # no sync ran (nor fanned out): every shard re-reads its slice
             hs.push_rows(None)
         t_c = time.perf_counter()
-        fm = self._masked_free(free)
-        admissible, dom_free, cstats, cls_ids = coarse_admissible(
-            order, self.snapshot, fm, level)
-        choices = coarse_assign(order, admissible, dom_free, self._cap_scale,
-                                top_kc=min(4, hs.nd), class_ids=cls_ids)
+        with self.tracer.span("engine.hier_coarse", gangs=len(order),
+                              domains=hs.nd) as csp:
+            fm = self._masked_free(free)
+            admissible, dom_free, cstats, cls_ids = coarse_admissible(
+                order, self.snapshot, fm, level)
+            choices = coarse_assign(order, admissible, dom_free,
+                                    self._cap_scale, top_kc=min(4, hs.nd),
+                                    class_ids=cls_ids)
+            csp.set(admissible=cstats["admissible"],
+                    pruned=cstats["pruned"])
         hs.last_pruned = cstats["pruned"]
         hs.last_admissible = cstats["admissible"]
         result.stats["hier_coarse_seconds"] = time.perf_counter() - t_c
@@ -1669,6 +1686,11 @@ class PlacementEngine:
             "incremental_rows": 0.0, "hier_repair_fallbacks": 0.0,
             "hier_waves": 0, "hier_wave_width": 0.0,
             "hier_wave_workers": 0.0, "hier_wave_devices": 0.0,
+            # the fine solves' own splits, summed over the solve's fine
+            # solves (each sub-engine's stat of the same name); the
+            # solve's own tail adds to finish_seconds in _finish_solve
+            "encode_seconds": 0.0, "device_seconds": 0.0,
+            "repair_seconds": 0.0, "finish_seconds": 0.0,
         }
         fine_walls: list[float] = []
         t_fine = time.perf_counter()
@@ -1718,18 +1740,19 @@ class PlacementEngine:
         # decreases during a solve), else over the whole cluster, as flat
         t_net = time.perf_counter()
         fallbacks = 0
-        for i, gang in pending:
-            fallbacks += 1
-            net_nodes = self._sched_nodes
-            adm_row = admissible[i]
-            if adm_row.any():
-                net_nodes = net_nodes[adm_row[hs.dom_of[net_nodes]]]
-            placed = _place_one(gang, self.snapshot, free, net_nodes)
-            if placed is None and net_nodes is not self._sched_nodes:
-                placed = _place_one(gang, self.snapshot, free,
-                                    self._sched_nodes)
-            if placed is not None:
-                placed_map[gang.name] = placed
+        with self.tracer.span("engine.hier_net", gangs=len(pending)):
+            for i, gang in pending:
+                fallbacks += 1
+                net_nodes = self._sched_nodes
+                adm_row = admissible[i]
+                if adm_row.any():
+                    net_nodes = net_nodes[adm_row[hs.dom_of[net_nodes]]]
+                placed = _place_one(gang, self.snapshot, free, net_nodes)
+                if placed is None and net_nodes is not self._sched_nodes:
+                    placed = _place_one(gang, self.snapshot, free,
+                                        self._sched_nodes)
+                if placed is not None:
+                    placed_map[gang.name] = placed
         result.stats["hier_net_seconds"] = time.perf_counter() - t_net
         if fine_walls:
             # per-domain fine walls (dispatch half + collect half; memo
@@ -1977,12 +2000,15 @@ class PlacementEngine:
         unplaced (with the memoized structured diagnosis against the
         residual free matrix), and feed the metrics and the decision
         ring. Span engine.finish, with engine.record around the feed; its
-        wall is result.stats["finish_seconds"]."""
+        wall is added to result.stats["finish_seconds"] (on the
+        hierarchical path that already holds the fine solves' tails)."""
         t_fin = time.perf_counter()
         with self.tracer.span("engine.finish", gangs=len(order)):
             self._finish(result, order, placed_map, fallbacks, free, gangs,
                          t0)
-        result.stats["finish_seconds"] = time.perf_counter() - t_fin
+        result.stats["finish_seconds"] = (result.stats.get("finish_seconds",
+                                                           0.0)
+                                          + time.perf_counter() - t_fin)
         return result
 
     def _finish(self, result, order, placed_map, fallbacks, free, gangs, t0):

@@ -6,7 +6,11 @@
   between them; each kubelet tick one `kubelet.tick` under the settle
   with one `kubelet.heartbeat`; each engine solve one `engine.finish`
   with one `engine.record`, and `result.stats["finish_seconds"]` on the
-  flat and the hierarchical path.
+  flat and the hierarchical path; each hierarchical solve one
+  `engine.hier_coarse` and one `engine.hier_net` under its
+  `engine.hierarchical`, full mode only; its `encode_seconds`,
+  `device_seconds` and `repair_seconds` the sums of its sub-engines' own,
+  and its `finish_seconds` theirs plus its own tail.
 - The store: each outermost call of a charged entry point adds to the
   innermost open span's `store_seconds` / `store_calls`, or is a
   `store.call` span where none is open; the charges equal a counting
@@ -181,21 +185,26 @@ def test_a_solve_has_one_finish_with_one_record(settled):
 
 def test_every_port_span_ran(settled):
     _h, spans, _n = settled
-    assert PORT_SPANS <= {sp.name for sp in spans}
+    # the settle's engine solves flat; the hierarchy's spans come from a
+    # hierarchical solve
+    _res, hier_spans = finish_stats(True)
+    assert PORT_SPANS <= {sp.name for sp in spans + hier_spans}
 
 
-def finish_stats(hierarchical: bool):
+def finish_stats(hierarchical: bool, tracer=None, gangs: int = 2):
     from test_hierarchy import make_cluster, make_gang
     from test_torch_hierarchy import port_gangs, port_snapshot
 
     from grove_tpu_torch.solver import PlacementEngine
 
     snap = port_snapshot(make_cluster(128))
-    tracer = Tracer()
+    tracer = Tracer() if tracer is None else tracer
     engine = PlacementEngine(snap, device="cpu", tracer=tracer,
                              hierarchical=hierarchical)
-    gangs = port_gangs([make_gang("a"), make_gang("b")])
-    res = engine.solve(gangs, free=snap.free.copy())
+    backlog = port_gangs([make_gang(f"g{i}", pods=8, cpu=16.0)
+                          for i in range(gangs)] if gangs > 2
+                         else [make_gang("a"), make_gang("b")])
+    res = engine.solve(backlog, free=snap.free.copy())
     return res, list(tracer.finished)
 
 
@@ -210,6 +219,88 @@ def test_finish_seconds_on_both_paths(hierarchical):
     # the stat is timed around the span
     assert fin.t1 - fin.t0 <= res.stats["finish_seconds"]
     assert len(children(spans, fin, "engine.record")) == 1
+
+
+HIER_SPANS = ("engine.hier_coarse", "engine.hier_net")
+
+
+def test_the_hierarchy_has_one_coarse_and_one_net_span_a_solve():
+    res, spans = finish_stats(True, gangs=24)
+    (top,) = named(spans, "engine.hierarchical")
+    for name in HIER_SPANS:
+        (sp,) = named(spans, name)
+        assert sp.parent_id == top.span_id
+        assert top.t0 <= sp.t0 <= sp.t1 <= top.t1
+    coarse, net = (named(spans, n)[0] for n in HIER_SPANS)
+    assert coarse.attrs["gangs"] == 24 and coarse.attrs["domains"] == 2
+    assert coarse.attrs["admissible"] + coarse.attrs["pruned"] == 24 * 2
+    assert net.attrs["gangs"] == res.stats["fallbacks"]
+    # the stats are timed around the spans
+    assert coarse.t1 - coarse.t0 <= res.stats["hier_coarse_seconds"]
+    assert net.t1 - net.t0 <= res.stats["hier_net_seconds"]
+    waves = named(spans, "engine.hier_wave")
+    assert waves and coarse.t1 <= waves[0].t0 and waves[-1].t1 <= net.t0
+
+
+def test_the_hierarchy_spans_are_full_mode_only():
+    tracer = AggregateTracer()
+    for name in HIER_SPANS:
+        assert tracer.span(name) is NOOP_TRACER.span(name)
+    made = []
+    span = tracer.span
+
+    def spy(name, **attrs):
+        sp = span(name, **attrs)
+        if sp is not NOOP_TRACER.span(name):
+            made.append(name)
+        return sp
+
+    tracer.span = spy
+    res, _spans = finish_stats(True, tracer=tracer, gangs=24)
+    assert res.stats["hierarchical"] == 1.0
+    assert "engine.hierarchical" in made
+    assert not set(HIER_SPANS) & set(made)
+
+
+def test_sub_engine_sums_equal_the_sub_engines_own_stats(monkeypatch):
+    from grove_tpu_torch.solver import PlacementEngine
+
+    subs = []
+    make = PlacementEngine._make_sub_engine
+
+    def recorded(self, shard):
+        sub = make(self, shard)
+        solve = sub.solve
+
+        def kept(*a, **k):
+            res = solve(*a, **k)
+            subs.append(dict(res.stats))
+            return res
+
+        sub.solve = kept
+        return sub
+
+    monkeypatch.setattr(PlacementEngine, "_make_sub_engine", recorded)
+    res, _spans = finish_stats(True, gangs=24)
+    assert res.stats["hierarchical"] == 1.0
+    assert len(subs) == res.stats["hier_fine_solves"] >= 2
+    for part in ("encode", "device", "repair"):
+        total = 0.0
+        for st in subs:
+            total += st[f"{part}_seconds"]
+        assert res.stats[f"{part}_seconds"] == total > 0.0
+    sub_finish = 0.0
+    for st in subs:
+        sub_finish += st["finish_seconds"]
+    (fin,) = [sp for sp in _spans if sp.name == "engine.finish"]
+    # the solve's own tail, timed around its span, on top of the fine
+    # solves' tails
+    assert (sub_finish + (fin.t1 - fin.t0) <= res.stats["finish_seconds"]
+            < sub_finish + 1.0)
+    # the collect halves run in turn on the calling thread, inside the
+    # waves' wall
+    assert (res.stats["device_seconds"] + res.stats["repair_seconds"]
+            + sub_finish <= res.stats["hier_fine_seconds"])
 
 
 # -- the store's charges ----------------------------------------------------------
