@@ -99,7 +99,12 @@ import torch
 
 from ..native.serial_native import domain_node_index, repair_native
 from ..observability.causal import next_token
-from ..observability.explain import DecisionLog, diagnose_unplaced
+from ..observability.explain import (
+    DecisionLog,
+    UnsatCode,
+    UnsatDiagnosis,
+    diagnose_unplaced,
+)
 from ..observability.tracing import NOOP_TRACER
 from ..topology.encoding import TopologySnapshot
 from .fit import place_gang_in_domain, placement_score_for_nodes
@@ -123,6 +128,13 @@ from .serial import _place_one, gang_sort_key, stamp_fairness
 #: [G, nd] admissibility and assignment matrices must stay small; the
 #: prune level walks broader until under it
 _MAX_COARSE_DOMAINS = 4096
+
+#: the reason a hierarchical fine solve gives every gang its block could
+#: not hold: the parent walks the gang to its next block and diagnoses
+#: what stays unplaced at its own level, so the shard does not
+_LEFT_TO_PARENT = UnsatDiagnosis(
+    "not placed in this domain; the parent solve diagnoses it at its level",
+    UnsatCode.CONFLICT)
 
 _NEG = -1e9
 
@@ -574,6 +586,9 @@ class PlacementEngine:
         #: unsat-diagnosis memo keyed by content fingerprints, cleared on
         #: rebind (schedulable flips); bounded
         self._diag_cache: dict[tuple, object] = {}
+        #: a shard of a hierarchical parent (set by its _make_sub_engine):
+        #: the gangs it cannot place go back undiagnosed
+        self._shard_of_parent = False
         #: single-launch fused path: the staged delta rides the io buffer
         #: into the one program, whose value/demand outputs stay resident
         #: for the incremental re-solve. Off = the split discipline.
@@ -1390,6 +1405,10 @@ class PlacementEngine:
         # sub-engine's ring would count each gang twice. Sub-engines have
         # no tracer and no metrics either: they run on the wave's threads.
         eng.decisions = None
+        # the parent reads only the placements: a gang the block cannot
+        # hold walks to its next block, and what stays unplaced is
+        # diagnosed by the parent against its own free rows
+        eng._shard_of_parent = True
         return eng
 
     def _domain_prepare(self, hs, dom: int, members,
@@ -1515,6 +1534,8 @@ class PlacementEngine:
             sub_stats["incremental_rows"] += res.stats.get(
                 "incremental_rows", 0.0)
         sub_stats["hier_repair_fallbacks"] += res.stats.get("fallbacks", 0.0)
+        sub_stats["hier_sub_diagnoses"] += res.stats.get("diagnoses", 0.0)
+        sub_stats["hier_diag_skipped"] += res.stats.get("diag_skipped", 0.0)
         for part in ("encode", "device", "repair", "finish"):
             sub_stats[f"{part}_seconds"] += res.stats.get(f"{part}_seconds",
                                                           0.0)
@@ -1570,6 +1591,7 @@ class PlacementEngine:
         workers = min(self._wave_workers(), len(doms))
         parallel = workers >= 1 and len(doms) > 1
         wave_t0 = time.perf_counter()
+        skipped0 = sub_stats["hier_diag_skipped"]
         with self.tracer.span("engine.hier_wave", domains=len(doms),
                               workers=workers if parallel else 0) as wsp:
             failures, memo_hits = self._wave_body(
@@ -1577,7 +1599,9 @@ class PlacementEngine:
                 fine_walls, workers if parallel else 0)
             wave_wall = time.perf_counter() - wave_t0
             wsp.set(wall_seconds=round(wave_wall, 6), memo_hits=memo_hits,
-                    failures=len(failures))
+                    failures=len(failures),
+                    diag_skipped=int(sub_stats["hier_diag_skipped"]
+                                     - skipped0))
         sub_stats["hier_waves"] += 1
         sub_stats["hier_wave_width"] = max(sub_stats["hier_wave_width"],
                                            float(len(doms)))
@@ -1686,6 +1710,9 @@ class PlacementEngine:
             "incremental_rows": 0.0, "hier_repair_fallbacks": 0.0,
             "hier_waves": 0, "hier_wave_width": 0.0,
             "hier_wave_workers": 0.0, "hier_wave_devices": 0.0,
+            # the fine solves' diagnoses and the gangs they handed back
+            # undiagnosed (each sub-engine's diagnoses / diag_skipped)
+            "hier_sub_diagnoses": 0.0, "hier_diag_skipped": 0.0,
             # the fine solves' own splits, summed over the solve's fine
             # solves (each sub-engine's stat of the same name); the
             # solve's own tail adds to finish_seconds in _finish_solve
@@ -2020,9 +2047,14 @@ class PlacementEngine:
                 [p.node_indices for p in placed_map.values()]
             )).tolist())
         free_fp = None
+        diagnoses = skipped = 0
         for gang in order:
             if gang.name in placed_map:
                 result.placed[gang.name] = placed_map[gang.name]
+                continue
+            if self._shard_of_parent:
+                result.unplaced[gang.name] = _LEFT_TO_PARENT
+                skipped += 1
                 continue
             # a retry tick re-solving an unchanged wedge pays one adler
             # pass, not the funnel's per-level sweeps
@@ -2040,11 +2072,16 @@ class PlacementEngine:
             diag = self._diag_cache.get(key)
             if diag is None:
                 diag = diagnose_unplaced(gang, self.snapshot, free)
+                diagnoses += 1
                 if len(self._diag_cache) > 4096:
                     self._diag_cache.clear()
                 self._diag_cache[key] = diag
             result.unplaced[gang.name] = diag
         result.stats["fallbacks"] = float(fallbacks)
+        # diagnose_unplaced calls run (the memo's misses), and gangs a
+        # shard handed back to its parent undiagnosed
+        result.stats["diagnoses"] = float(diagnoses)
+        result.stats["diag_skipped"] = float(skipped)
         result.wall_seconds = time.perf_counter() - t0
         with self.tracer.span("engine.record"):
             self._record(result, gangs)

@@ -66,8 +66,11 @@ def code_of(reason):
     return getattr(code, "value", code)
 
 
-#: stats only the port reports: the candidate domains its repair tried
-PORT_STATS = ("repair_candidates",)
+#: stats only the port reports: the candidate domains its repair tried,
+#: the diagnoses its solve tail ran and the gangs a fine solve handed
+#: back undiagnosed, and those two summed over a solve's fine solves
+PORT_STATS = ("repair_candidates", "diagnoses", "diag_skipped",
+              "hier_sub_diagnoses", "hier_diag_skipped")
 
 
 def plain_stats(res) -> dict:
@@ -535,6 +538,97 @@ class TestDispatchAdoption:
         assert handles[1].token is None
 
 
+def diagnosis_problem(seed: int):
+    """seeded_problem over 8 blocks, plus one gang no rack can hold (17
+    whole hosts under a rack requirement). The coarse pass crowds the
+    backlog into one block, which hands back what it cannot hold; those
+    gangs place in the blocks they walk to, the extra gang in none."""
+    jsnap, free, jgangs = seeded_problem(seed, num_nodes=512, num_gangs=60)
+    jgangs = jgangs + [make_gang(f"z{seed}", pods=17, cpu=32.0, required=1)]
+    return port_snapshot(jsnap), free, port_gangs(jgangs)
+
+
+class TestSubEnginesLeaveDiagnosesToTheParent:
+    """A sub-engine hands the gangs its block could not hold back to the
+    parent undiagnosed; the parent diagnoses what stays unplaced, and its
+    results equal those of a solve whose sub-engines diagnose."""
+
+    @staticmethod
+    def solve(snap, free, gangs, shards_diagnose: bool):
+        """The hierarchical solve with diagnose_unplaced counted (the
+        snapshot each call was handed) and each fine solve's unplaced
+        reasons kept; `shards_diagnose` turns every sub-engine's switch
+        back on."""
+        from grove_tpu_torch.observability.tracing import Tracer
+        from grove_tpu_torch.solver import engine as engine_mod
+
+        handed, backs = [], []
+        plain = engine_mod.diagnose_unplaced
+        make = PlacementEngine._make_sub_engine
+
+        def counted(gang, snapshot, free):
+            handed.append(snapshot)
+            return plain(gang, snapshot, free)
+
+        def sub_engine(self, shard):
+            sub = make(self, shard)
+            if shards_diagnose:
+                sub._shard_of_parent = False
+            solve = sub.solve
+
+            def kept(*a, **k):
+                res = solve(*a, **k)
+                backs.append(dict(res.unplaced))
+                return res
+
+            sub.solve = kept
+            return sub
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(engine_mod, "diagnose_unplaced", counted)
+            mp.setattr(PlacementEngine, "_make_sub_engine", sub_engine)
+            eng = PlacementEngine(snap, device="cpu", hierarchical=True,
+                                  hier_parallel_workers=4, tracer=Tracer())
+            f = free.copy()
+            res = eng.solve(gangs, free=f)
+        return eng, res, f, handed, backs
+
+    @pytest.mark.parametrize("seed", range(3))
+    def test_fine_failures_go_back_undiagnosed(self, seed):
+        from grove_tpu_torch.solver import engine as engine_mod
+
+        snap, free, gangs = diagnosis_problem(seed)
+        eng, res, f, handed, backs = self.solve(snap, free, gangs, False)
+        ctl, want, f_want, ctl_handed, _ = self.solve(snap, free, gangs,
+                                                      True)
+        # every diagnosis ran in the parent, one an unplaced gang; with
+        # the switch back on the sub-engines diagnose too
+        assert sorted(res.unplaced) == [f"z{seed}"]
+        assert len(handed) == 1 and handed[0] is eng.snapshot
+        assert res.stats["diagnoses"] == 1.0
+        assert res.stats["hier_sub_diagnoses"] == 0.0
+        assert any(s is not ctl.snapshot for s in ctl_handed)
+        assert want.stats["hier_sub_diagnoses"] > 0.0
+        # the fine failures, handed back with the one shared reason, are
+        # what hier_diag_skipped and the waves count
+        back = [(name, reason) for b in backs for name, reason in b.items()]
+        assert all(reason is engine_mod._LEFT_TO_PARENT
+                   for _name, reason in back)
+        assert engine_mod._LEFT_TO_PARENT.code is UnsatCode.CONFLICT
+        waves = [sp for sp in eng.tracer.finished
+                 if sp.name == "engine.hier_wave"]
+        assert (res.stats["hier_diag_skipped"] == len(back)
+                == sum(sp.attrs["failures"] for sp in waves)
+                == sum(sp.attrs["diag_skipped"] for sp in waves))
+        # gangs a block handed back that the alternate walk placed
+        walked = {name for name, _r in back} - set(res.unplaced)
+        assert walked and walked <= set(res.placed)
+        # the parent's results are the diagnosing solve's, bit for bit
+        assert_bitwise(want, res, f_want, f)
+        for name, reason in res.unplaced.items():
+            assert reason.funnel == want.unplaced[name].funnel
+
+
 class TestSubSnapshot:
     def test_subset_snapshot_shape(self):
         jsnap = make_cluster(128)
@@ -917,8 +1011,10 @@ class TestShardedHierarchy:
         assert np.array_equal(a["free"], b["free"]), f"{what}: free"
         if not stats:
             return
-        sa = {k: v for k, v in a["stats"].items() if k not in _DEVICE_STATS}
-        sb = {k: v for k, v in b["stats"].items() if k not in _DEVICE_STATS}
+        sa = {k: v for k, v in a["stats"].items()
+              if k not in _DEVICE_STATS and k not in PORT_STATS}
+        sb = {k: v for k, v in b["stats"].items()
+              if k not in _DEVICE_STATS and k not in PORT_STATS}
         assert sa == sb, f"{what}: stats"
 
     @pytest.mark.parametrize("case", sorted(SHARDED_CASES))

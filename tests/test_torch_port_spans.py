@@ -11,6 +11,12 @@
   `engine.hierarchical`, full mode only; its `encode_seconds`,
   `device_seconds` and `repair_seconds` the sums of its sub-engines' own,
   and its `finish_seconds` theirs plus its own tail.
+- Diagnoses: a solve's tail counts the diagnose_unplaced calls it ran
+  (`diagnoses`) and the gangs a sub-engine handed back undiagnosed
+  (`diag_skipped`); a hierarchical solve sums its sub-engines' into
+  `hier_sub_diagnoses` / `hier_diag_skipped`, each `engine.hier_wave`
+  carries its fine solves' `diag_skipped`, and the benchmark's
+  diagnoses_per_solve reads them.
 - The store: each outermost call of a charged entry point adds to the
   innermost open span's `store_seconds` / `store_calls`, or is a
   `store.call` span where none is open; the charges equal a counting
@@ -240,6 +246,11 @@ def test_the_hierarchy_has_one_coarse_and_one_net_span_a_solve():
     assert net.t1 - net.t0 <= res.stats["hier_net_seconds"]
     waves = named(spans, "engine.hier_wave")
     assert waves and coarse.t1 <= waves[0].t0 and waves[-1].t1 <= net.t0
+    # each wave's fine solves handed back every gang they failed,
+    # undiagnosed: the first block holds 16 of the 24 gangs
+    skipped = [w.attrs["diag_skipped"] for w in waves]
+    assert skipped == [w.attrs["failures"] for w in waves]
+    assert sum(skipped) == res.stats["hier_diag_skipped"] == 8
 
 
 def test_the_hierarchy_spans_are_full_mode_only():
@@ -301,6 +312,59 @@ def test_sub_engine_sums_equal_the_sub_engines_own_stats(monkeypatch):
     # waves' wall
     assert (res.stats["device_seconds"] + res.stats["repair_seconds"]
             + sub_finish <= res.stats["hier_fine_seconds"])
+    # the diagnosis counters likewise: the sub-engines ran none and
+    # handed back the gangs their blocks could not hold
+    for total, part in (("hier_sub_diagnoses", "diagnoses"),
+                        ("hier_diag_skipped", "diag_skipped")):
+        assert res.stats[total] == sum(st[part] for st in subs)
+    assert res.stats["hier_sub_diagnoses"] == 0.0
+    assert res.stats["hier_diag_skipped"] > 0.0
+
+
+@pytest.mark.parametrize("hierarchical", [False, True])
+def test_the_tail_diagnoses_each_unplaced_gang_once(hierarchical):
+    """`diagnoses` counts the diagnose_unplaced calls the solve's own tail
+    ran: one an unplaced gang on a cold memo, none on a repeat that hits
+    it, on a flat engine and on a hierarchical parent alike."""
+    from test_hierarchy import make_cluster, make_gang
+    from test_torch_hierarchy import port_gangs, port_snapshot
+
+    from grove_tpu_torch.solver import PlacementEngine
+
+    snap = port_snapshot(make_cluster(128))
+    engine = PlacementEngine(snap, device="cpu", hierarchical=hierarchical)
+    # 17 whole hosts under a rack requirement: no rack of 16 holds one
+    backlog = port_gangs([make_gang(f"g{i}", pods=8, cpu=16.0)
+                          for i in range(6)]
+                         + [make_gang(f"z{i}", pods=17, cpu=32.0, required=1)
+                            for i in range(2)])
+    first = engine.solve(backlog, free=snap.free.copy())
+    again = engine.solve(backlog, free=snap.free.copy())
+    assert bool(first.stats.get("hierarchical")) is hierarchical
+    assert sorted(first.unplaced) == sorted(again.unplaced) == ["z0", "z1"]
+    assert first.stats["diagnoses"] == 2.0
+    assert again.stats["diagnoses"] == 0.0
+    assert first.stats["diag_skipped"] == again.stats["diag_skipped"] == 0.0
+    for name, reason in again.unplaced.items():
+        assert reason is first.unplaced[name]
+    if hierarchical:
+        assert first.stats["hier_sub_diagnoses"] == 0.0
+        assert first.stats["hier_diag_skipped"] > 0.0
+
+
+def test_diagnoses_per_solve_reads_the_solves_counters():
+    """The benchmark's diagnoses_per_solve metric: the mean over the
+    window's solves of the tail's diagnoses plus the fine solves'; None
+    for a program that counts none."""
+    from benchmark import readers, run
+
+    read = run._reader("diagnoses_per_solve")
+    flat, _ = finish_stats(False)
+    hier, _ = finish_stats(True, gangs=24)
+    solves = [dict(flat.stats), dict(hier.stats),
+              {"diagnoses": 3.0, "hier_sub_diagnoses": 6.0}]
+    assert read(readers.TracedRun(solves=solves)) == 3.0
+    assert read(readers.TracedRun(solves=[{"finish_seconds": 0.1}])) is None
 
 
 # -- the store's charges ----------------------------------------------------------
