@@ -1534,8 +1534,6 @@ class PlacementEngine:
             sub_stats["incremental_rows"] += res.stats.get(
                 "incremental_rows", 0.0)
         sub_stats["hier_repair_fallbacks"] += res.stats.get("fallbacks", 0.0)
-        sub_stats["hier_sub_diagnoses"] += res.stats.get("diagnoses", 0.0)
-        sub_stats["hier_diag_skipped"] += res.stats.get("diag_skipped", 0.0)
         for part in ("encode", "device", "repair", "finish"):
             sub_stats[f"{part}_seconds"] += res.stats.get(f"{part}_seconds",
                                                           0.0)
@@ -1591,7 +1589,6 @@ class PlacementEngine:
         workers = min(self._wave_workers(), len(doms))
         parallel = workers >= 1 and len(doms) > 1
         wave_t0 = time.perf_counter()
-        skipped0 = sub_stats["hier_diag_skipped"]
         with self.tracer.span("engine.hier_wave", domains=len(doms),
                               workers=workers if parallel else 0) as wsp:
             failures, memo_hits = self._wave_body(
@@ -1599,9 +1596,7 @@ class PlacementEngine:
                 fine_walls, workers if parallel else 0)
             wave_wall = time.perf_counter() - wave_t0
             wsp.set(wall_seconds=round(wave_wall, 6), memo_hits=memo_hits,
-                    failures=len(failures),
-                    diag_skipped=int(sub_stats["hier_diag_skipped"]
-                                     - skipped0))
+                    failures=len(failures))
         sub_stats["hier_waves"] += 1
         sub_stats["hier_wave_width"] = max(sub_stats["hier_wave_width"],
                                            float(len(doms)))
@@ -1710,9 +1705,6 @@ class PlacementEngine:
             "incremental_rows": 0.0, "hier_repair_fallbacks": 0.0,
             "hier_waves": 0, "hier_wave_width": 0.0,
             "hier_wave_workers": 0.0, "hier_wave_devices": 0.0,
-            # the fine solves' diagnoses and the gangs they handed back
-            # undiagnosed (each sub-engine's diagnoses / diag_skipped)
-            "hier_sub_diagnoses": 0.0, "hier_diag_skipped": 0.0,
             # the fine solves' own splits, summed over the solve's fine
             # solves (each sub-engine's stat of the same name); the
             # solve's own tail adds to finish_seconds in _finish_solve
@@ -2047,14 +2039,13 @@ class PlacementEngine:
                 [p.node_indices for p in placed_map.values()]
             )).tolist())
         free_fp = None
-        diagnoses = skipped = 0
+        diagnoses = 0
         for gang in order:
             if gang.name in placed_map:
                 result.placed[gang.name] = placed_map[gang.name]
                 continue
             if self._shard_of_parent:
                 result.unplaced[gang.name] = _LEFT_TO_PARENT
-                skipped += 1
                 continue
             # a retry tick re-solving an unchanged wedge pays one adler
             # pass, not the funnel's per-level sweeps
@@ -2078,10 +2069,8 @@ class PlacementEngine:
                 self._diag_cache[key] = diag
             result.unplaced[gang.name] = diag
         result.stats["fallbacks"] = float(fallbacks)
-        # diagnose_unplaced calls run (the memo's misses), and gangs a
-        # shard handed back to its parent undiagnosed
+        # diagnose_unplaced calls run (the memo's misses)
         result.stats["diagnoses"] = float(diagnoses)
-        result.stats["diag_skipped"] = float(skipped)
         result.wall_seconds = time.perf_counter() - t0
         with self.tracer.span("engine.record"):
             self._record(result, gangs)

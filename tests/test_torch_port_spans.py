@@ -12,11 +12,9 @@
   `device_seconds` and `repair_seconds` the sums of its sub-engines' own,
   and its `finish_seconds` theirs plus its own tail.
 - Diagnoses: a solve's tail counts the diagnose_unplaced calls it ran
-  (`diagnoses`) and the gangs a sub-engine handed back undiagnosed
-  (`diag_skipped`); a hierarchical solve sums its sub-engines' into
-  `hier_sub_diagnoses` / `hier_diag_skipped`, each `engine.hier_wave`
-  carries its fine solves' `diag_skipped`, and the benchmark's
-  diagnoses_per_solve reads them.
+  (`diagnoses`), which the benchmark's diagnoses_per_solve reads; a
+  sub-engine runs none and hands the gangs its block could not hold back
+  to the parent, which each `engine.hier_wave` counts as `failures`.
 - The store: each outermost call of a charged entry point adds to the
   innermost open span's `store_seconds` / `store_calls`, or is a
   `store.call` span where none is open; the charges equal a counting
@@ -246,11 +244,9 @@ def test_the_hierarchy_has_one_coarse_and_one_net_span_a_solve():
     assert net.t1 - net.t0 <= res.stats["hier_net_seconds"]
     waves = named(spans, "engine.hier_wave")
     assert waves and coarse.t1 <= waves[0].t0 and waves[-1].t1 <= net.t0
-    # each wave's fine solves handed back every gang they failed,
-    # undiagnosed: the first block holds 16 of the 24 gangs
-    skipped = [w.attrs["diag_skipped"] for w in waves]
-    assert skipped == [w.attrs["failures"] for w in waves]
-    assert sum(skipped) == res.stats["hier_diag_skipped"] == 8
+    # the waves' fine solves handed back every gang they failed: the
+    # first block holds 16 of the 24 gangs
+    assert sum(w.attrs["failures"] for w in waves) == 8
 
 
 def test_the_hierarchy_spans_are_full_mode_only():
@@ -273,10 +269,11 @@ def test_the_hierarchy_spans_are_full_mode_only():
     assert not set(HIER_SPANS) & set(made)
 
 
-def test_sub_engine_sums_equal_the_sub_engines_own_stats(monkeypatch):
+def recording_sub_engines(monkeypatch) -> list:
+    """Every sub-engine's results, in the order its solves return."""
     from grove_tpu_torch.solver import PlacementEngine
 
-    subs = []
+    results = []
     make = PlacementEngine._make_sub_engine
 
     def recorded(self, shard):
@@ -285,14 +282,20 @@ def test_sub_engine_sums_equal_the_sub_engines_own_stats(monkeypatch):
 
         def kept(*a, **k):
             res = solve(*a, **k)
-            subs.append(dict(res.stats))
+            results.append(res)
             return res
 
         sub.solve = kept
         return sub
 
     monkeypatch.setattr(PlacementEngine, "_make_sub_engine", recorded)
+    return results
+
+
+def test_sub_engine_sums_equal_the_sub_engines_own_stats(monkeypatch):
+    results = recording_sub_engines(monkeypatch)
     res, _spans = finish_stats(True, gangs=24)
+    subs = [r.stats for r in results]
     assert res.stats["hierarchical"] == 1.0
     assert len(subs) == res.stats["hier_fine_solves"] >= 2
     for part in ("encode", "device", "repair"):
@@ -312,17 +315,17 @@ def test_sub_engine_sums_equal_the_sub_engines_own_stats(monkeypatch):
     # waves' wall
     assert (res.stats["device_seconds"] + res.stats["repair_seconds"]
             + sub_finish <= res.stats["hier_fine_seconds"])
-    # the diagnosis counters likewise: the sub-engines ran none and
-    # handed back the gangs their blocks could not hold
-    for total, part in (("hier_sub_diagnoses", "diagnoses"),
-                        ("hier_diag_skipped", "diag_skipped")):
-        assert res.stats[total] == sum(st[part] for st in subs)
-    assert res.stats["hier_sub_diagnoses"] == 0.0
-    assert res.stats["hier_diag_skipped"] > 0.0
+    # the sub-engines ran no diagnosis and handed back the gangs their
+    # blocks could not hold, which the waves count
+    assert all(st["diagnoses"] == 0.0 for st in subs)
+    back = sum(len(r.unplaced) for r in results)
+    waves = [sp for sp in _spans if sp.name == "engine.hier_wave"]
+    assert back == sum(w.attrs["failures"] for w in waves) > 0
 
 
 @pytest.mark.parametrize("hierarchical", [False, True])
-def test_the_tail_diagnoses_each_unplaced_gang_once(hierarchical):
+def test_the_tail_diagnoses_each_unplaced_gang_once(hierarchical,
+                                                    monkeypatch):
     """`diagnoses` counts the diagnose_unplaced calls the solve's own tail
     ran: one an unplaced gang on a cold memo, none on a repeat that hits
     it, on a flat engine and on a hierarchical parent alike."""
@@ -330,7 +333,9 @@ def test_the_tail_diagnoses_each_unplaced_gang_once(hierarchical):
     from test_torch_hierarchy import port_gangs, port_snapshot
 
     from grove_tpu_torch.solver import PlacementEngine
+    from grove_tpu_torch.solver import engine as engine_mod
 
+    subs = recording_sub_engines(monkeypatch)
     snap = port_snapshot(make_cluster(128))
     engine = PlacementEngine(snap, device="cpu", hierarchical=hierarchical)
     # 17 whole hosts under a rack requirement: no rack of 16 holds one
@@ -344,12 +349,14 @@ def test_the_tail_diagnoses_each_unplaced_gang_once(hierarchical):
     assert sorted(first.unplaced) == sorted(again.unplaced) == ["z0", "z1"]
     assert first.stats["diagnoses"] == 2.0
     assert again.stats["diagnoses"] == 0.0
-    assert first.stats["diag_skipped"] == again.stats["diag_skipped"] == 0.0
     for name, reason in again.unplaced.items():
         assert reason is first.unplaced[name]
+        assert reason is not engine_mod._LEFT_TO_PARENT
+    # the sub-engines diagnosed nothing and handed gangs back
+    assert bool(subs) is hierarchical
+    assert all(r.stats["diagnoses"] == 0.0 for r in subs)
     if hierarchical:
-        assert first.stats["hier_sub_diagnoses"] == 0.0
-        assert first.stats["hier_diag_skipped"] > 0.0
+        assert any(r.unplaced for r in subs)
 
 
 def test_diagnoses_per_solve_reads_the_solves_counters():
