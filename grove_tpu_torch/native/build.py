@@ -30,7 +30,7 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 #: grove_native_abi() of a library this wrapper may call: bumped with any
 #: signature or constraint-model change of serial_scorer.cpp
-EXPECTED_ABI = 4
+EXPECTED_ABI = 5
 
 _LIB: ctypes.CDLL | None = None
 
@@ -49,9 +49,9 @@ _PROBLEM = ([ctypes.c_int32] * 3 + [_F32, _F32, _U8, _I32, ctypes.c_int32]
 _SOLVE_ARGTYPES = _PROBLEM + [_U8, _I32, _I32, _I32]
 #: ... then top_dom, top_val, top_k, dom_level, dom_node_offsets,
 #: dom_nodes, elig_masks, pod_mask_idx, assign, narrowest, fallbacks_out,
-#: candidates_out
+#: candidates_out, net_short_out
 _REPAIR_ARGTYPES = _PROBLEM + [_I32, _F32, ctypes.c_int32, _I32, _I32, _I32,
-                               _U8, _I32, _I32, _I32, _I32, _I32]
+                               _U8, _I32, _I32, _I32, _I32, _I32, _I32]
 
 
 def library_path() -> Path:

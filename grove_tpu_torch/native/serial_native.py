@@ -251,8 +251,10 @@ def repair_native(
     fallback count); MUTATES free in place like the Python repair loop.
     `dom_index` is domain_node_index(snapshot.domain_ids, dom_offsets,
     len(dom_level)), built here when not given. `stats`, when given, gets
-    "repair_candidates": the candidate domains tried. Raises RuntimeError
-    if the library cannot be built or loaded."""
+    "repair_candidates": the candidate domains tried, and
+    "repair_net_short": the fallbacks the net turned away because the
+    schedulable nodes' free, summed, cannot hold the gang. Raises
+    RuntimeError if the library cannot be built or loaded."""
     lib = load_library()
     g = len(order)
     if dom_index is None:
@@ -266,17 +268,18 @@ def repair_native(
     masks, mask_idx = _encode_elig(order, snapshot.num_nodes)
     assign = np.empty(int(pod_offsets[-1]), np.int32)
     narrowest = np.empty(g, np.int32)
-    fallbacks, candidates = ct.c_int32(0), ct.c_int32(0)
+    fallbacks, candidates, net_short = (ct.c_int32(0) for _ in range(3))
     lib.repair_gangs(
         *args,
         _ptr(top_dom_c), _ptr(top_val_c), ct.c_int32(top_dom_c.shape[1]),
         _ptr(dom_level_c), *map(_ptr, dom_index),
         _ptr(masks), _ptr(mask_idx), _ptr(assign), _ptr(narrowest),
-        ct.byref(fallbacks), ct.byref(candidates),
+        ct.byref(fallbacks), ct.byref(candidates), ct.byref(net_short),
     )
     _commit_back(free, free_c)
     if stats is not None:
         stats["repair_candidates"] = float(candidates.value)
+        stats["repair_net_short"] = float(net_short.value)
     placements = _build_placements(
         snapshot, order, pod_offsets, assign, narrowest
     )

@@ -2,8 +2,10 @@
 //
 // grove_tpu_torch's own copy of grove_tpu/native/serial_scorer.cpp, kept
 // identical in algorithm so the two packages place bit for bit. Its ABI
-// differs: the commit into free and the placement scores run here, and
-// the repair reads its candidates' nodes from a domain->node index.
+// differs: the commit into free and the placement scores run here, the
+// repair reads its candidates' nodes from a domain->node index, and its
+// exactness net skips the level scan for a gang the free aggregate
+// cannot hold (aggregate_short), which places nothing differently.
 // `solve_serial` is the native serial baseline; `repair_gangs` is the
 // engine's default exact repair (PlacementEngine native_repair=True).
 // The algorithm mirrors grove_tpu_torch/solver/serial.py and fit.py
@@ -336,6 +338,65 @@ bool place_in_domain(const Ctx& ctx, const Gang& g, const float* demand,
                     assign);
 }
 
+// The exactness net's level scan: levels narrowest first down to the
+// gang's required level (-1 = the cluster root), each level's
+// aggregate-feasible domains tightest first, the first that holds the gang
+// keeps it. Returns whether one did; a failed domain's free is restored.
+bool place_by_scan(const Ctx& ctx, const Gang& g, const float* demand,
+                   const float* total, const std::vector<int32_t>& sched,
+                   std::vector<float>& free, int32_t* assign) {
+  const int num_res = ctx.num_res;
+  int stop = g.required_level >= 0 ? g.required_level : -1;
+  for (int level = ctx.num_levels - 1; level >= stop; --level) {
+    std::vector<std::vector<int32_t>> doms;
+    if (level == -1) {
+      // aggregate check for the root mirrors subdomains_tightest
+      std::vector<float> agg(num_res, 0.0f);
+      for (int32_t n : sched)
+        for (int r = 0; r < num_res; ++r) agg[r] += free[n * num_res + r];
+      bool ok = true;
+      for (int r = 0; r < num_res; ++r)
+        if (agg[r] + 1e-6f < total[r]) ok = false;
+      if (ok) doms.push_back(sched);
+    } else {
+      doms = subdomains_tightest(ctx, sched, level, total, free);
+    }
+    for (auto& dom : doms) {
+      std::vector<float> save;
+      save.reserve(dom.size() * num_res);
+      for (int32_t n : dom)
+        for (int r = 0; r < num_res; ++r) save.push_back(free[n * num_res + r]);
+      if (place_in_domain(ctx, g, demand, dom, level, free, assign))
+        return true;
+      size_t k = 0;
+      for (int32_t n : dom)
+        for (int r = 0; r < num_res; ++r) free[n * num_res + r] = save[k++];
+    }
+  }
+  return false;
+}
+
+// Whether the level scan is sure to find no domain for `total`: some
+// resource's free, summed over `sched` in node order with each entry
+// clamped at 0, is short of it. Every aggregate the scan takes (each
+// subdomain of subdomains_tightest, the root) sums some of these nodes in
+// the same order, unclamped. A float32 sum rounded to nearest never
+// decreases when an addend grows, and a node left out adds an exact 0, so
+// each of those aggregates is at most this bound and fails the same
+// `+ 1e-6f <` test. The clamp is what makes that hold: fits() admits
+// free + 1e-6 >= demand, so a node may sit a hair below 0 after a commit.
+bool aggregate_short(const Ctx& ctx, const std::vector<int32_t>& sched,
+                     const float* total, const std::vector<float>& free) {
+  const int num_res = ctx.num_res;
+  std::vector<float> bound(num_res, 0.0f);
+  for (int32_t n : sched)
+    for (int r = 0; r < num_res; ++r)
+      bound[r] += std::max(free[n * num_res + r], 0.0f);
+  for (int r = 0; r < num_res; ++r)
+    if (bound[r] + 1e-6f < total[r]) return true;
+  return false;
+}
+
 // Commit every placed pod's demand into the caller's `free_io` and write
 // each gang's narrowest shared level. The commit runs in pod-index order,
 // one pod at a time (np.subtract.at's order), so `free_io` comes out
@@ -385,7 +446,9 @@ extern "C" {
 // masks. v4 = both entry points commit into the caller's free matrix and
 // return each gang's narrowest shared level; repair_gangs reads its
 // candidates' nodes from a domain->node index and counts the candidates.
-int32_t grove_native_abi(void) { return 4; }
+// v5 = repair_gangs' net skips a gang its free aggregate cannot hold and
+// counts those gangs (net_short_out).
+int32_t grove_native_abi(void) { return 5; }
 
 // Returns number of gangs placed. assign[P_total] gets the node index per
 // pod (-1 if the owning gang is unplaced). gang_order: priority order is
@@ -459,36 +522,8 @@ int32_t solve_serial(
     for (int32_t p = g.pod_begin; p < g.pod_end; ++p)
       for (int r = 0; r < num_res; ++r) total[r] += demand[p * num_res + r];
 
-    int stop = g.required_level >= 0 ? g.required_level : -1;
-    bool placed = false;
-    for (int level = num_levels - 1; level >= stop && !placed; --level) {
-      std::vector<std::vector<int32_t>> doms;
-      if (level == -1) {
-        // aggregate check for the root mirrors subdomains_tightest
-        std::vector<float> agg(num_res, 0.0f);
-        for (int32_t n : sched)
-          for (int r = 0; r < num_res; ++r) agg[r] += free[n * num_res + r];
-        bool ok = true;
-        for (int r = 0; r < num_res; ++r)
-          if (agg[r] + 1e-6f < total[r]) ok = false;
-        if (ok) doms.push_back(sched);
-      } else {
-        doms = subdomains_tightest(ctx, sched, level, total.data(), free);
-      }
-      for (auto& dom : doms) {
-        std::vector<float> save;
-        save.reserve(dom.size() * num_res);
-        for (int32_t n : dom)
-          for (int r = 0; r < num_res; ++r) save.push_back(free[n * num_res + r]);
-        if (place_in_domain(ctx, g, demand, dom, level, free, assign)) {
-          placed = true;
-          break;
-        }
-        size_t k = 0;
-        for (int32_t n : dom)
-          for (int r = 0; r < num_res; ++r) free[n * num_res + r] = save[k++];
-      }
-    }
+    bool placed = place_by_scan(ctx, g, demand, total.data(), sched, free,
+                                assign);
     if (placed) {
       ++placed_count;
     } else {
@@ -519,9 +554,10 @@ extern "C" {
 // was built is skipped. The root's entry is not read.
 // top_dom/top_val: [G*K] candidates (row-major, best first); entries with
 // top_val <= -5e8 are invalid.
-// Returns number of gangs placed; fallbacks_out counts full-scan rescues,
-// candidates_out the candidate domains tried. free_io and narrowest as
-// in solve_serial.
+// Returns number of gangs placed; fallbacks_out counts the gangs that
+// reached the net, net_short_out those of them the net rejected by the
+// free aggregate alone (aggregate_short) without a scan, candidates_out
+// the candidate domains tried. free_io and narrowest as in solve_serial.
 int32_t repair_gangs(
     int32_t num_nodes, int32_t num_res, int32_t num_levels,
     const float* capacity, float* free_io, const uint8_t* schedulable,
@@ -538,7 +574,7 @@ int32_t repair_gangs(
     const int32_t* dom_node_offsets, const int32_t* dom_nodes,
     const uint8_t* elig_masks, const int32_t* pod_mask_idx,
     int32_t* assign, int32_t* narrowest, int32_t* fallbacks_out,
-    int32_t* candidates_out) {
+    int32_t* candidates_out, int32_t* net_short_out) {
   Ctx ctx;
   ctx.num_nodes = num_nodes;
   ctx.num_res = num_res;
@@ -564,6 +600,7 @@ int32_t repair_gangs(
   int32_t placed_count = 0;
   int32_t fallbacks = 0;
   int32_t candidates = 0;
+  int32_t net_short = 0;
   std::vector<int32_t> dom;
   for (int32_t gidx = 0; gidx < num_gangs; ++gidx) {
     Gang g;
@@ -609,39 +646,17 @@ int32_t repair_gangs(
         for (int r = 0; r < num_res; ++r) free[n * num_res + r] = save[ki++];
     }
     if (!placed) {
-      // exactness net: full narrowest-first scan, same as solve_serial
+      // exactness net: solve_serial's level scan, skipped where the free
+      // aggregate shows it cannot place the gang
       ++fallbacks;
       std::vector<float> total(num_res, 0.0f);
       for (int32_t p = g.pod_begin; p < g.pod_end; ++p)
         for (int r = 0; r < num_res; ++r) total[r] += demand[p * num_res + r];
-      int stop = g.required_level >= 0 ? g.required_level : -1;
-      for (int level = num_levels - 1; level >= stop && !placed; --level) {
-        std::vector<std::vector<int32_t>> doms;
-        if (level == -1) {
-          std::vector<float> agg(num_res, 0.0f);
-          for (int32_t n : sched)
-            for (int r = 0; r < num_res; ++r) agg[r] += free[n * num_res + r];
-          bool ok = true;
-          for (int r = 0; r < num_res; ++r)
-            if (agg[r] + 1e-6f < total[r]) ok = false;
-          if (ok) doms.push_back(sched);
-        } else {
-          doms = subdomains_tightest(ctx, sched, level, total.data(), free);
-        }
-        for (auto& dom : doms) {
-          std::vector<float> save;
-          save.reserve(dom.size() * num_res);
-          for (int32_t n : dom)
-            for (int r = 0; r < num_res; ++r) save.push_back(free[n * num_res + r]);
-          if (place_in_domain(ctx, g, demand, dom, level, free, assign)) {
-            placed = true;
-            break;
-          }
-          size_t ki = 0;
-          for (int32_t n : dom)
-            for (int r = 0; r < num_res; ++r) free[n * num_res + r] = save[ki++];
-        }
-      }
+      if (aggregate_short(ctx, sched, total.data(), free))
+        ++net_short;
+      else
+        placed = place_by_scan(ctx, g, demand, total.data(), sched, free,
+                               assign);
     }
     if (placed) {
       ++placed_count;
@@ -653,6 +668,7 @@ int32_t repair_gangs(
                    pod_offsets, demand, assign, free_io, narrowest);
   if (fallbacks_out) *fallbacks_out = fallbacks;
   if (candidates_out) *candidates_out = candidates;
+  if (net_short_out) *net_short_out = net_short;
   return placed_count;
 }
 

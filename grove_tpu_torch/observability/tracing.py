@@ -54,8 +54,10 @@ engine.hier_net, under engine.hierarchical). In full mode
 the store charges each outermost call's wall time to the innermost open
 span's `store_seconds` / `store_calls` attrs (ObjectStore.charge_calls),
 or records it as a `store.call` span where none is open. It also adds
-an attr to spans both packages record (PORT_ATTRS): the native repair's
-`repair_candidates` on engine.fused or engine.repair.
+attrs to spans both packages record (PORT_ATTRS): the repair's
+`repair_candidates` and `repair_net_short` on engine.fused or
+engine.repair, and the fine solve's `repair_net_short` on the
+engine.fine_solve point.
 
 Contract note: a finished Span stays mutable until exported — callers may
 amend attrs (e.g. the manager stamps `outcome` after the span closed) and
@@ -90,7 +92,7 @@ PORT_SPANS = frozenset((
 
 #: attrs only the port sets on spans both packages record. Lockstep tests
 #: drop them before comparing.
-PORT_ATTRS = frozenset(("repair_candidates",))
+PORT_ATTRS = frozenset(("repair_candidates", "repair_net_short"))
 
 #: the gang lifecycle phases GangTimeline decomposes, in order. Each is
 #: the gap between two consecutive virtual-clock checkpoints, so the sum

@@ -76,8 +76,9 @@ placements are bit-equal to solving the domains one at a time. Its
 result's `encode_seconds`, `device_seconds` and `repair_seconds` are the
 sums of its fine solves' own (the encodes ran side by side on the pool's
 threads; the rest in turn on the calling thread), and `finish_seconds`
-its own tail plus theirs (a solve that adopts a dispatch reports the
-dispatch's wall as `encode_seconds`, as on the flat path);
+its own tail plus theirs, and `repair_net_short` the sum of theirs (a
+solve that adopts a dispatch reports the dispatch's wall as
+`encode_seconds`, as on the flat path);
 `hier_coarse_seconds`, `hier_fine_seconds` (the waves' wall) and
 `hier_net_seconds` are walls of its three phases.
 """
@@ -327,6 +328,21 @@ class Statics(NamedTuple):
     cap_scale: torch.Tensor    # f32 [R]
     membership: torch.Tensor   # f32 [N, D] one-hot M
     ones: torch.Tensor         # f32 [1, N] the default eligibility table
+
+
+def aggregate_short(gang: SolverGang, free: np.ndarray,
+                    nodes: np.ndarray) -> bool:
+    """Whether the exactness net's bound turns `gang` away: some
+    resource's free over `nodes`, each entry clamped at 0 and summed in
+    node order in float32, is short of the gang's total (its pods summed
+    in order). The C++ repair (native/serial_scorer.cpp aggregate_short)
+    skips its level scan on it; here it is only counted."""
+    r = free.shape[1]
+    bound = (np.cumsum(np.maximum(free[nodes], 0), axis=0,
+                       dtype=np.float32)[-1]
+             if len(nodes) else np.zeros(r, np.float32))
+    total = np.cumsum(gang.demand, axis=0, dtype=np.float32)[-1]
+    return bool((bound + np.float32(1e-6) < total).any())
 
 
 def record_solve_metrics(metrics, result: SolveResult, backlog: int) -> None:
@@ -1488,6 +1504,7 @@ class PlacementEngine:
                 encode_seconds=round(res.stats.get("encode_seconds", 0.0), 6),
                 device_seconds=round(res.stats.get("device_seconds", 0.0), 6),
                 repair_seconds=round(res.stats.get("repair_seconds", 0.0), 6),
+                repair_net_short=res.stats.get("repair_net_short", 0.0),
                 **({"causal_link": self._hier_token}
                    if self._hier_token is not None else {}),
             )
@@ -1534,6 +1551,7 @@ class PlacementEngine:
             sub_stats["incremental_rows"] += res.stats.get(
                 "incremental_rows", 0.0)
         sub_stats["hier_repair_fallbacks"] += res.stats.get("fallbacks", 0.0)
+        sub_stats["repair_net_short"] += res.stats.get("repair_net_short", 0.0)
         for part in ("encode", "device", "repair", "finish"):
             sub_stats[f"{part}_seconds"] += res.stats.get(f"{part}_seconds",
                                                           0.0)
@@ -1703,6 +1721,7 @@ class PlacementEngine:
             "hier_fine_solves": 0, "hier_domain_reuse": 0,
             "hier_sub_incremental": 0, "hier_sub_reused": 0,
             "incremental_rows": 0.0, "hier_repair_fallbacks": 0.0,
+            "repair_net_short": 0.0,
             "hier_waves": 0, "hier_wave_width": 0.0,
             "hier_wave_workers": 0.0, "hier_wave_devices": 0.0,
             # the fine solves' own splits, summed over the solve's fine
@@ -1937,6 +1956,7 @@ class PlacementEngine:
                     repair_seconds=round(result.stats["repair_seconds"], 6),
                     fallbacks=fallbacks,
                     repair_candidates=result.stats["repair_candidates"],
+                    repair_net_short=result.stats["repair_net_short"],
                     overlapped=bool(result.stats.get("dispatch_overlap")),
                 )
         return self._finish_solve(result, order, placed_map, fallbacks, free,
@@ -2080,7 +2100,8 @@ class PlacementEngine:
         then the serial exactness net. In C++ by default (repair_native,
         which raises if its library cannot be built); with the fit.py
         primitives, the semantic reference, when native_repair is off.
-        Leaves the candidate domains tried in self._repair_stats."""
+        Leaves the candidate domains tried and the fallbacks the net's
+        bound turned away in self._repair_stats."""
         self._repair_stats = stats = {}
         if self.native_repair:
             return repair_native(
@@ -2090,7 +2111,7 @@ class PlacementEngine:
             )
         snapshot = self.snapshot
         placed_map = {}
-        fallbacks = candidates = 0
+        fallbacks = candidates = net_short = 0
         for i, gang in enumerate(order):
             placed = None
             for k in range(top_dom.shape[1]):
@@ -2107,10 +2128,12 @@ class PlacementEngine:
             if placed is None:
                 # Exactness net: stale scores or all-candidates-conflicted.
                 fallbacks += 1
+                net_short += aggregate_short(gang, free, self._sched_nodes)
                 placed = _place_one(gang, snapshot, free, self._sched_nodes)
             if placed is not None:
                 placed_map[gang.name] = placed
         stats["repair_candidates"] = float(candidates)
+        stats["repair_net_short"] = float(net_short)
         return placed_map, fallbacks
 
     # -- the device phase ----------------------------------------------------

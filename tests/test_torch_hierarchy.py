@@ -66,9 +66,10 @@ def code_of(reason):
     return getattr(code, "value", code)
 
 
-#: stats only the port reports: the candidate domains its repair tried
-#: and the diagnoses its solve tail ran
-PORT_STATS = ("repair_candidates", "diagnoses")
+#: stats only the port reports: the candidate domains its repair tried,
+#: the gangs its net turned away on the free aggregate and the diagnoses
+#: its solve tail ran
+PORT_STATS = ("repair_candidates", "repair_net_short", "diagnoses")
 
 
 def plain_stats(res) -> dict:

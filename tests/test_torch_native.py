@@ -18,6 +18,8 @@ The port's build differs from the reference on purpose: a failed g++
 build or an ABI mismatch raises instead of returning None.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -419,6 +421,117 @@ def test_repair_candidates_counts_the_domains_tried():
     assert not free[snap.domain_ids[0] == 0].any()
 
 
+def _pile_up():
+    """A block of 256 hosts (16 racks of 16) left in fragments no pod
+    fits ({3, 12, 0}), five whole hosts and two that hold seven pods
+    between them though they sum to 8 accelerators; 256 gangs of the
+    stress mix, every fourth from the second twice as large. The first
+    gangs take the whole hosts; after them a stress gang passes the free
+    aggregate and fails the scan, a large one is short of it."""
+    snap = bench.make_cluster(256)
+    free = np.tile(np.float32([3.0, 12.0, 0.0]), (256, 1))
+    free[[7, 40, 99, 170, 250]] = snap.capacity[0]
+    free[20] = [12.0, 64.0, 4.0]
+    free[200] = [20.0, 64.0, 4.0]
+    snap.free[...] = free
+    gangs = bench.make_gangs(256)
+    for i in range(1, 256, 4):
+        gangs[i] = dataclasses.replace(gangs[i], demand=gangs[i].demand * 2)
+    return snap, gangs
+
+
+def _net_only(g):
+    """Candidates for `g` gangs, all invalid: every gang reaches the net."""
+    return np.full((g, 1), -1e9, np.float32), np.zeros((g, 1), np.int32)
+
+
+def _below_zero():
+    """One block of three racks of four hosts (cpu 8). Four one-pod gangs
+    of 1.0000005 cpu through the C++ repair take rack 0's hosts with 1.0
+    free (fits() admits the 1e-6 tolerance) and leave each a hair below
+    0. Then `f` (0.5) fits host 5, alone in rack 1, though the free summed
+    unclamped over every host is short of it; `t` (1.005e-7 cpu and an
+    accelerator) fits host 9, alone in rack 2 with 1e-7 cpu, the clamped
+    aggregate short of it by less than 1e-6; `s` (4e-6) fits nowhere,
+    short by more. fit.py's tolerance is 1e-9: it places the last three
+    as the C++ does, not the first four."""
+    snap = cluster(blocks=1, racks=3, hosts=4, cpu=8.0)
+    snap.free[:, [0, 2]] = 0.0
+    snap.free[:4, 0] = 1.0
+    snap.free[5, 0] = 0.5
+    snap.free[9] = [1e-7, 32.0, 1.0]
+    first = [gang(f"h{i}", pods=1, cpu=1.0000005) for i in range(4)]
+    placed, _fallbacks, free = _jax_repair(
+        snap, first, JaxDomainSpace(snap), *_net_only(len(first)))
+    assert len(placed) == 4 and (free[:4, 0] < 0).all()
+    snap.free[...] = free
+    return snap, [gang("f", pods=1, cpu=0.5),
+                  gang("t", pods=1, cpu=1.005e-7, tpu=1.0),
+                  gang("s", pods=1, cpu=4e-6)]
+
+
+NET_CASES = {"pile_up": _pile_up, "below_zero": _below_zero}
+
+
+def _net_short_count(snap, order, placed) -> int:
+    """Of the gangs in `order`, every one of which reaches the net, those
+    whose free aggregate is short at their turn: the schedulable hosts'
+    free, each entry clamped at 0, added host by host in float32, plus
+    1e-6 below the gang's pods added in order, in some resource. Each
+    placed gang's pods are then taken off in order, which is the walk's
+    own where a gang has one pod or whole-number demands."""
+    free = snap.free.copy()
+    sched = np.flatnonzero(snap.schedulable)
+    short = 0
+    for g in order:
+        bound = np.zeros(free.shape[1], np.float32)
+        for n in sched:
+            bound = bound + np.maximum(free[n], np.float32(0.0))
+        total = np.zeros(free.shape[1], np.float32)
+        for d in g.demand:
+            total = total + d
+        short += bool((bound + np.float32(1e-6) < total).any())
+        if g.name in placed:
+            for n, d in zip(placed[g.name].node_indices, g.demand):
+                free[n] -= d
+    return short
+
+
+@pytest.mark.parametrize("case", list(NET_CASES))
+def test_the_nets_bound_turns_away_only_what_the_scan_cannot_place(case):
+    """Every gang's candidates invalid, so every gang reaches the net. The
+    port's C++ repair, which skips the scan for a gang its clamped free
+    aggregate is short of, the JAX package's, which scans every one, and
+    the fit.py repair give the same placements, fallbacks and free bit
+    for bit; the count of gangs the bound turned away is a NumPy count of
+    the same test, from both port repairs."""
+    snap, order = NET_CASES[case]()
+    g = len(order)
+    top_val, top_dom = _net_only(g)
+    space = JaxDomainSpace(snap)
+    ref = _jax_repair(snap, order, space, top_val, top_dom)
+    tsnap, torder = _convert(snap, order)
+    free, stats = tsnap.free.copy(), {}
+    placed, fallbacks = repair_native(
+        tsnap, torder, top_val, top_dom, space.dom_level,
+        np.asarray(space.offsets[:-1], np.int32), free, stats=stats)
+    _assert_same_repair(ref, (placed, fallbacks, free))
+    engine = PlacementEngine(tsnap, device="cpu", native_repair=False)
+    free_py = tsnap.free.copy()
+    fitpy = (*engine._repair(torder, top_val, top_dom, free_py), free_py)
+    _assert_same_repair(ref, fitpy)
+    want = _net_short_count(snap, order, ref[0])
+    assert stats["repair_net_short"] == want
+    assert engine._repair_stats["repair_net_short"] == want
+    assert fallbacks == g
+    if case == "pile_up":
+        # a handful placed; both kinds of failure in the net
+        assert 0 < len(placed) <= 8
+        assert 0 < want < g - len(placed)
+    else:
+        assert sorted(placed) == ["f", "t"] and want == 1
+
+
 @pytest.fixture
 def fresh_native(monkeypatch, tmp_path):
     """The native build with no cached library: a private build directory
@@ -449,7 +562,7 @@ def test_compile_error_raises(fresh_native, monkeypatch, tmp_path):
 
 def test_abi_mismatch_raises(fresh_native, monkeypatch):
     monkeypatch.setattr(fresh_native, "EXPECTED_ABI", fresh_native.EXPECTED_ABI + 1)
-    with pytest.raises(RuntimeError, match="ABI 4"):
+    with pytest.raises(RuntimeError, match="ABI 5"):
         fresh_native.load_library()
     assert fresh_native._LIB is None
 

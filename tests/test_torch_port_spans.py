@@ -15,6 +15,11 @@
   (`diagnoses`), which the benchmark's diagnoses_per_solve reads; a
   sub-engine runs none and hands the gangs its block could not hold back
   to the parent, which each `engine.hier_wave` counts as `failures`.
+- The net's short gangs: the repair counts the gangs its exactness net
+  turned away on the free aggregate (`repair_net_short`, on the
+  engine.fused span and each engine.fine_solve point); a hierarchical
+  result sums its fine solves', and the benchmark's net_short_per_solve
+  reads it.
 - The store: each outermost call of a charged entry point adds to the
   innermost open span's `store_seconds` / `store_calls`, or is a
   `store.call` span where none is open; the charges equal a counting
@@ -371,6 +376,49 @@ def test_diagnoses_per_solve_reads_the_solves_counters():
     solves = [dict(flat.stats), dict(hier.stats),
               {"diagnoses": 3.0, "hier_sub_diagnoses": 6.0}]
     assert read(readers.TracedRun(solves=solves)) == 3.0
+    assert read(readers.TracedRun(solves=[{"finish_seconds": 0.1}])) is None
+
+
+def test_a_flat_solve_reports_its_nets_short_gangs_on_its_span():
+    """40 gangs for the room of 32: the eight left over reach the net
+    with the cluster's free short of them, and the count is on the
+    result and on the engine.fused span."""
+    res, spans = finish_stats(False, gangs=40)
+    (fused,) = named(spans, "engine.fused")
+    assert res.num_placed == 32 and res.stats["fallbacks"] == 8.0
+    assert fused.attrs["repair_net_short"] == res.stats["repair_net_short"]
+    assert res.stats["repair_net_short"] == 8.0
+
+
+def test_the_parents_net_short_is_the_fine_solves_sum(monkeypatch):
+    """24 gangs ranked onto a block that holds 16: its sub-engine hands
+    back the 8 its net turned away on the free aggregate. The parent's
+    `repair_net_short` is the sum of its fine solves', above 0 and at
+    most their fallbacks, and each fine solve's engine.fine_solve point
+    carries its own."""
+    results = recording_sub_engines(monkeypatch)
+    res, spans = finish_stats(True, gangs=24)
+    subs = [r.stats["repair_net_short"] for r in results]
+    assert res.stats["hierarchical"] == 1.0
+    assert res.stats["repair_net_short"] == sum(subs)
+    assert 0.0 < sum(subs) <= res.stats["hier_repair_fallbacks"]
+    points = named(spans, "engine.fine_solve")
+    assert [p.attrs["repair_net_short"] for p in points] == subs
+
+
+def test_net_short_per_solve_reads_the_solves_counters():
+    """The benchmark's net_short_per_solve metric: the mean over the
+    window's solves of `repair_net_short`, flat and hierarchical alike;
+    None for a program that counts none."""
+    from benchmark import readers, run
+
+    read = run._reader("net_short_per_solve")
+    flat, _ = finish_stats(False, gangs=40)
+    hier, _ = finish_stats(True, gangs=24)
+    solves = [dict(flat.stats), dict(hier.stats), {"repair_net_short": 3.0}]
+    want = (flat.stats["repair_net_short"] + hier.stats["repair_net_short"]
+            + 3.0) / 3
+    assert read(readers.TracedRun(solves=solves)) == want > 1.0
     assert read(readers.TracedRun(solves=[{"finish_seconds": 0.1}])) is None
 
 
